@@ -1,17 +1,17 @@
-"""complex_prompt_diffusion_tpu — a TPU-native diffusion sampling framework.
+"""complex_prompt_diffusion_tpu — a JAX diffusion sampling framework.
 
-A from-scratch JAX/XLA/Pallas rebuild of the capabilities of
-``milesgray/complex_prompt_diffusion`` (see /root/repo/SURVEY.md): Stable
+A from-scratch JAX/XLA rebuild of the capabilities of
+``milesgray/complex_prompt_diffusion`` (see SURVEY.md): Stable
 Diffusion 1.x/2.x txt2img / img2img / inpaint sampling with a composable
 prompt algebra, a full sampler zoo, CLIP / attention-saliency guidance,
 dynamic thresholding, depth conditioning and animation rendering.
 
-Architecture stance (TPU-first, not a port):
+Architecture stance (rebuilt around XLA, not a port):
   * pure functions + pytrees at the core; thin stateful API at the edge
   * schedulers = precomputed coefficient tables + pure ``step`` functions
   * samplers = ``lax.scan`` bodies, jit-compiled end to end
   * classifier-free guidance factors batched through ONE UNet call
-  * flash attention + fused GroupNorm+SiLU as Pallas TPU kernels
+  * fused attention (cuDNN on the GPU) and XLA-fused GroupNorm+SiLU
   * parallelism via ``jax.sharding.Mesh`` + ``shard_map`` (no module offload)
 """
 

@@ -5,9 +5,10 @@ model bundle, ``process_txt2img(config)`` / ``process_img2img(...)`` driven
 by a JSON config with ``{"sampler": {"name", "args"}, "prompt_json": {...},
 "render": {...}}`` shape.
 
-TPU differences:
+Differences:
   * no fp16-halving pass and no low-VRAM hook installation
-    (manager.py:25-41) — weights live in HBM in bf16 via bundle.cast.
+    (manager.py:25-41) — weights live in device memory in bf16 via
+    bundle.cast.
   * samplers resolve from the typed registry (no eval fallback).
   * the score corrector becomes the clip_sample / threshold_e options of the
     typed configs.

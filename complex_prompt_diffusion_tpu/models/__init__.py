@@ -1,7 +1,7 @@
 """Neural networks: SD UNet, VAE (AutoencoderKL), CLIP text encoders.
 
 Pure-functional JAX: every model is (init_fn -> params pytree,
-apply_fn(params, ...) -> outputs). Layout is NHWC (TPU-native); compute dtype
+apply_fn(params, ...) -> outputs). Layout is NHWC; compute dtype
 is bf16 with f32 normalization statistics and f32 time/positional embeddings.
 
 Reference parity targets:

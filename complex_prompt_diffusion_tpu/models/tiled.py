@@ -8,7 +8,7 @@ back, and normalize by the folded weight sum. This bounds the UNet's
 attention cost (level-0 self-attention is O(S^2) in latent pixels) and its
 activation memory on canvases far above the training resolution.
 
-TPU-first deviations from the reference:
+Deviations from the reference:
   * tile positions are computed statically from the (static) latent shape,
     and the tile loop is a ``lax.scan`` — one compiled program regardless
     of canvas size, tiles processed in ``chunk``-sized batched UNet calls
@@ -19,8 +19,7 @@ TPU-first deviations from the reference:
     is exactly 1.0 in tile interiors, so non-overlap regions reproduce the
     single-tile result bit-exactly;
   * every tile shares the [B] batch dim, so a chunk of k tiles runs as one
-    [k*B] UNet call — large, MXU-friendly batches instead of k sequential
-    small calls.
+    [k*B] UNet call — large batches instead of k sequential small calls.
 """
 
 from __future__ import annotations
@@ -161,7 +160,7 @@ def tiled_apply_sharded(
     axis: str = "data",
     chunk: int = 1,
 ) -> jax.Array:
-    """Multi-chip spatial sharding for hi-res canvases (SURVEY §5: the TPU
+    """Multi-device spatial sharding for hi-res canvases (SURVEY §5: the
     analog of sequence parallelism for image models; the reference's
     single-GPU analog is the fold/unfold path, ddpm.py:995-1077).
 

@@ -1,4 +1,4 @@
-"""AutoencoderKL (the SD first stage), TPU-native functional implementation.
+"""AutoencoderKL (the SD first stage), functional JAX implementation.
 
 Parity target: /root/reference/cpd/models/autoencoder.py — ``Encoder`` (:287),
 ``Decoder`` (:380), ``DiagonalGaussianDistribution`` (:13-51),
@@ -15,7 +15,7 @@ The 0.18215 latent scale factor is applied by callers (as in the reference:
 prompts.py:326,345; render.py:27,35), not by the VAE itself.
 
 Replaced mechanisms: the reference's memory-metered sliced VAE attention
-(autoencoder.py:233-276) -> Pallas flash attention; its Lightning training
+(autoencoder.py:233-276) -> ops.attention; its Lightning training
 plumbing is out of scope (inference-first, matching the reference's use).
 """
 
@@ -269,11 +269,7 @@ def vae_decode(cfg: VAEConfig, params, z) -> jax.Array:
             if up["attn"]:
                 h = _attn_block(up["attn"][i], h)
         if "upsample" in up:
-            if L.subpixel_up_wanted(up["upsample"]["kernel"].shape):
-                # 2.25x-fewer-FLOP exact subpixel form (models/layers.py)
-                h = L.conv3x3_after_upsample2x(up["upsample"], h)
-            else:
-                h = L.conv2d(up["upsample"], L.upsample_nearest2x(h))
+            h = L.conv2d(up["upsample"], L.upsample_nearest2x(h))
     h = L.group_norm_silu_p(p["norm_out"], h, eps=1e-6)
     return L.conv2d(p["conv_out"], h).astype(jnp.float32)
 

@@ -1,28 +1,20 @@
-"""TPU compute kernels (Pallas) with XLA fallbacks.
+"""Compute ops shared by the models.
 
-This is the "native layer" of the framework: where the reference spends its
-complexity on CUDA memory-metered attention slicing
-(/root/reference/cpd/models/attention.py:280-348) and CPU<->GPU offload, the
-TPU build replaces all of it with on-chip kernels:
-
-  * :func:`flash_attention` — tiled online-softmax attention, no materialized
-    S x S score matrix, bf16 MXU matmuls with f32 accumulation.
-  * :func:`group_norm` / :func:`group_norm_silu` — single-pass fused
-    GroupNorm(+SiLU), the ResBlock/VAE hot pattern
-    (/root/reference/cpd/models/unet.py:207-238).
+  * :func:`attention` — multi-head attention over the merged [B, S, H*D]
+    layout; cuDNN's fused flash attention on the GPU where it applies, plain
+    XLA elsewhere (ops/attention.py).
+  * :func:`group_norm` / :func:`group_norm_silu` — GroupNorm(+SiLU) with f32
+    statistics, the ResBlock/VAE hot pattern
+    (cpd/models/unet.py:207-238).
   * :func:`gaussian_blur` — separable depthwise blur for unconditional-blur
-    and attention-saliency guidance (/root/reference/cpd/samplers/ddim.py:68).
-
-Every op dispatches to a pure-XLA implementation when not running on TPU
-(tests run on CPU) or when shapes fall outside the kernel's envelope.
+    and attention-saliency guidance (cpd/samplers/ddim.py:68).
 """
 
-from complex_prompt_diffusion_tpu.ops.attention import flash_attention, attention
+from complex_prompt_diffusion_tpu.ops.attention import attention
 from complex_prompt_diffusion_tpu.ops.groupnorm import group_norm, group_norm_silu
 from complex_prompt_diffusion_tpu.ops.blur import gaussian_blur
 
 __all__ = [
-    "flash_attention",
     "attention",
     "group_norm",
     "group_norm_silu",

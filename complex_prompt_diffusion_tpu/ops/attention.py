@@ -1,505 +1,42 @@
-"""Flash attention for TPU (Pallas) with an XLA fallback.
+"""Multi-head attention over the SpatialTransformer's merged [B, S, H*D] layout.
 
 Replaces the reference's memory-metered sliced attention
-(/root/reference/cpd/models/attention.py:280-348), which reads
-``torch.cuda.mem_get_info`` in the forward pass to choose a slice count. On
-TPU the S x S score matrix is never materialized: the kernel streams K/V
-blocks through VMEM with an online softmax (flash-attention-2 style: the
-accumulator stays unnormalized until the final KV block).
+(cpd/models/attention.py:280-348), which reads ``torch.cuda.mem_get_info``
+in the forward pass to choose a slice count. Two routes, chosen per call
+site before tracing by :func:`device.attention_route`:
 
-Shape envelope (Stable Diffusion): self-attention Sq = Skv in
-{64, 256, 1024, 4096, 16384}, head_dim in {40, 64, 80, 160}; cross-attention
-Skv = 77 (CLIP tokens). head_dim and sequence lengths are zero-padded to
-lane/tile multiples in the wrapper; padded KV positions are masked with a
-large negative score generated from a *static* length (no runtime cost).
+* ``"cudnn"``: cuDNN's fused flash attention, a library kernel reached
+  through ``jax.nn.dot_product_attention(implementation="cudnn")``. The
+  S x S score matrix never reaches device memory (at SD-1.5's level-0
+  self-attention with UNet batch 8 the plain route writes an f32
+  [8, 8, 4096, 4096] score tensor, 4.3 GB, per site and step). Its input
+  layout [B, S, H, D] is the merged layout reshaped, so no transpose is
+  needed. Gradients use the library's own fused backward.
+* ``"xla"``: :func:`_xla_attention`, einsum -> f32 softmax -> einsum. It is
+  the reference every test and the on-card comparison check against, and
+  the route for f32, the CPU, short contexts (CLIP's 77 tokens) and head
+  dims cuDNN does not take (the VAE mid-block's single d=512 head).
+
+Shape envelope (Stable Diffusion): self-attention S in {64, 256, 1024, 4096},
+head dims 40, 80, 160; cross-attention kv = 77; VAE mid-block d = 512.
 """
 
 from __future__ import annotations
 
-import functools
 import math
-import os
 from typing import Optional
 
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
-__all__ = ["flash_attention", "attention"]
+from complex_prompt_diffusion_tpu.device import attention_route
 
-_NEG_INF = -0.7 * float(jnp.finfo(jnp.float32).max)
-_LOG2E = math.log2(math.e)
-
-# Above this KV length the [Skv, block_q] score block no longer fits VMEM
-# comfortably and the online (streaming-KV) kernel takes over.
-_ONEPASS_MAX_KV = 16384
-
-# Canonical-K scores matmul (see _onepass_kernel_kcanon): read once at
-# import; the lru-cached wrappers trace it in, so flipping mid-process has
-# no effect on already-traced shapes.
-_USE_KCANON = os.environ.get("CPD_ATTN_KCANON", "0") == "1"
-
-
-def _round_up(x: int, m: int) -> int:
-    return (x + m - 1) // m * m
-
-
-def _attn_kernel(
-    q_ref, k_ref, v_ref, o_ref,
-    m_scratch, l_scratch, acc_scratch,
-    *, scale: float, kv_len: int, block_k: int, num_kv_blocks: int,
-):
-    """Grid: (batch*heads, Sq/block_q, Skv/block_k); KV dim is sequential."""
-    j = pl.program_id(2)
-
-    @pl.when(j == 0)
-    def _init():
-        m_scratch[...] = jnp.full(m_scratch.shape, _NEG_INF, jnp.float32)
-        l_scratch[...] = jnp.zeros(l_scratch.shape, jnp.float32)
-        acc_scratch[...] = jnp.zeros(acc_scratch.shape, jnp.float32)
-
-    q = q_ref[0]  # [block_q, d]
-    k = k_ref[0]  # [block_k, d]
-    s = jax.lax.dot_general(
-        q, k, (((1,), (1,)), ((), ())), preferred_element_type=jnp.float32
-    )
-    s = s * scale
-
-    # Mask padded KV columns. kv_len is static, so this whole branch folds
-    # away for aligned sequence lengths.
-    if num_kv_blocks * block_k > kv_len:
-        col = jax.lax.broadcasted_iota(jnp.int32, s.shape, 1) + j * block_k
-        s = jnp.where(col < kv_len, s, _NEG_INF)
-
-    m_prev = m_scratch[:, :1]  # [block_q, 1]
-    l_prev = l_scratch[:, :1]
-    m_curr = jnp.max(s, axis=1, keepdims=True)
-    m_next = jnp.maximum(m_prev, m_curr)
-    alpha = jnp.exp(m_prev - m_next)
-    p = jnp.exp(s - m_next)
-    l_next = alpha * l_prev + jnp.sum(p, axis=1, keepdims=True)
-
-    m_scratch[...] = jnp.broadcast_to(m_next, m_scratch.shape)
-    l_scratch[...] = jnp.broadcast_to(l_next, l_scratch.shape)
-
-    v = v_ref[0]  # [block_k, d]
-    pv = jax.lax.dot(
-        p.astype(v.dtype), v, preferred_element_type=jnp.float32
-    )
-    acc_scratch[...] = acc_scratch[...] * alpha + pv
-
-    @pl.when(j == num_kv_blocks - 1)
-    def _store():
-        l_final = l_scratch[:, :1]
-        l_inv = jnp.where(l_final == 0.0, 1.0, 1.0 / l_final)
-        o_ref[0] = (acc_scratch[...] * l_inv).astype(o_ref.dtype)
-
-
-@functools.partial(
-    jax.jit, static_argnames=("scale", "block_q", "block_k", "interpret")
-)
-def _flash_attention_bhsd(
-    q, k, v, *, scale: float, block_q: int, block_k: int, interpret: bool
-):
-    """Core pallas call. q: [BH, Sq, D]; k, v: [BH, Skv, D] (D lane-aligned)."""
-    bh, sq, d = q.shape
-    kv_len = k.shape[1]
-
-    block_q = min(block_q, _round_up(sq, 128))
-    block_k = min(block_k, _round_up(kv_len, 128))
-    sq_pad = _round_up(sq, block_q)
-    skv_pad = _round_up(kv_len, block_k)
-    if sq_pad != sq:
-        q = jnp.pad(q, ((0, 0), (0, sq_pad - sq), (0, 0)))
-    if skv_pad != kv_len:
-        k = jnp.pad(k, ((0, 0), (0, skv_pad - kv_len), (0, 0)))
-        v = jnp.pad(v, ((0, 0), (0, skv_pad - kv_len), (0, 0)))
-
-    num_kv_blocks = skv_pad // block_k
-    grid = (bh, sq_pad // block_q, num_kv_blocks)
-
-    out = pl.pallas_call(
-        functools.partial(
-            _attn_kernel,
-            scale=scale,
-            kv_len=kv_len,
-            block_k=block_k,
-            num_kv_blocks=num_kv_blocks,
-        ),
-        out_shape=jax.ShapeDtypeStruct((bh, sq_pad, d), q.dtype),
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((1, block_q, d), lambda b, i, j: (b, i, 0)),
-            pl.BlockSpec((1, block_k, d), lambda b, i, j: (b, j, 0)),
-            pl.BlockSpec((1, block_k, d), lambda b, i, j: (b, j, 0)),
-        ],
-        out_specs=pl.BlockSpec((1, block_q, d), lambda b, i, j: (b, i, 0)),
-        scratch_shapes=[
-            pltpu.VMEM((block_q, 128), jnp.float32),
-            pltpu.VMEM((block_q, 128), jnp.float32),
-            pltpu.VMEM((block_q, d), jnp.float32),
-        ],
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("parallel", "parallel", "arbitrary"),
-            vmem_limit_bytes=100 * 1024 * 1024,
-        ),
-        interpret=interpret,
-    )(q, k, v)
-    return out[:, :sq, :]
-
-
-def _onepass_kernel(q_ref, k_ref, v_ref, o_ref, *, scale, kv_len, skv_pad):
-    """One-pass transposed-layout attention (grid: (BH, Sq/block_q)).
-
-    SD sequence lengths (<= 16k) fit the whole KV row in VMEM, so the
-    online-softmax bookkeeping (running max, alpha rescale, scratch
-    accumulators) of the streaming kernel is pure overhead. Layout is
-    [D, S] — head_dim on SUBLANES — so neither matmul pads d to the
-    128-lane tile (the streaming kernel wastes 3.2x nominal FLOPs on
-    d=40 -> 128 lane padding at SD-1.5's level-0 attention; this kernel
-    measured 1.7-2.3x faster end-to-end, scripts/perf_attn12.py).
-
-    The softmax denominator comes free: V carries an appended ones-row, so
-    the PV matmul's last output row is sum_k p[k, q] (d+1 rounds into the
-    same sublane tile). exp2 is the native transcendental; scale folds
-    through log2(e).
-    """
-    q = q_ref[0]  # [d, block_q]
-    k = k_ref[0]  # [d, skv_pad]
-    s = jax.lax.dot_general(
-        k, q, (((0,), (0,)), ((), ())), preferred_element_type=jnp.float32
-    )  # [skv_pad, block_q]
-    s = s * (scale * _LOG2E)
-    if skv_pad > kv_len:
-        row = jax.lax.broadcasted_iota(jnp.int32, s.shape, 0)
-        s = jnp.where(row < kv_len, s, _NEG_INF)
-    m = jnp.max(s, axis=0, keepdims=True)  # [1, block_q]
-    p = jnp.exp2(s - m).astype(v_ref.dtype)
-    v = v_ref[0]  # [d+1, skv_pad]; last row ones
-    o = jax.lax.dot_general(
-        v, p, (((1,), (0,)), ((), ())), preferred_element_type=jnp.float32
-    )  # [d+1, block_q]
-    d = o.shape[0] - 1
-    o_ref[0] = (o[:d] / o[d:]).astype(o_ref.dtype)
-
-
-def _onepass_kernel_hdbs(q_ref, k_ref, v_ref, o_ref, *, scale):
-    """Channel-major variant of `_onepass_kernel`: operands are [H, D, B*S]
-    slices — the layout the qkv projection writes DIRECTLY as
-    dot_general(w, x) -> [3C, B, S], so no XLA relayout exists on either
-    side. The softmax denominator comes from an in-VMEM ones-row appended
-    to v (the HBM-side concat the bhds path pays is free here)."""
-    q = q_ref[0]  # [d, block_q]
-    k = k_ref[0]  # [d, S]
-    s = jax.lax.dot_general(
-        k, q, (((0,), (0,)), ((), ())), preferred_element_type=jnp.float32
-    )  # [S, block_q]
-    s = s * (scale * _LOG2E)
-    m = jnp.max(s, axis=0, keepdims=True)
-    p = jnp.exp2(s - m).astype(v_ref.dtype)
-    v = v_ref[0]  # [d, S]
-    v1 = jnp.concatenate(
-        [v, jnp.ones((1, v.shape[1]), v.dtype)], axis=0
-    )  # [d+1, S] in VMEM
-    o = jax.lax.dot_general(
-        v1, p, (((1,), (0,)), ((), ())), preferred_element_type=jnp.float32
-    )  # [d+1, block_q]
-    d = o.shape[0] - 1
-    o_ref[0] = (o[:d] / o[d:]).astype(o_ref.dtype)
-
-
-@functools.partial(jax.jit, static_argnames=("scale", "block_q", "interpret"))
-def _onepass_attention_hdbs(
-    q_t, k_t, v_t, *, scale: float, block_q: int, interpret: bool
-):
-    """Core one-pass call on channel-major operands [H, D, B, S].
-
-    B and S fold into one trailing axis (contiguous, free); query blocks
-    never straddle a batch boundary (block_q divides S), and the k/v row
-    for block i is batch i // (S/block_q)'s full row."""
-    h, d, b, sq = q_t.shape
-    kv_len = k_t.shape[3]
-    assert kv_len == sq and sq % 128 == 0 and sq % block_q == 0, (
-        "channel-major path requires self-attention with 128-aligned S"
-    )
-    q_t = q_t.reshape(h, d, b * sq)
-    k_t = k_t.reshape(h, d, b * sq)
-    v_t = v_t.reshape(h, d, b * sq)
-    blocks_per_batch = sq // block_q
-    grid = (h, (b * sq) // block_q)
-    out = pl.pallas_call(
-        functools.partial(_onepass_kernel_hdbs, scale=scale),
-        out_shape=jax.ShapeDtypeStruct((h, d, b * sq), q_t.dtype),
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((1, d, block_q), lambda g, i: (g, 0, i)),
-            pl.BlockSpec(
-                (1, d, sq),
-                lambda g, i, _n=blocks_per_batch: (g, 0, i // _n),
-            ),
-            pl.BlockSpec(
-                (1, d, sq),
-                lambda g, i, _n=blocks_per_batch: (g, 0, i // _n),
-            ),
-        ],
-        out_specs=pl.BlockSpec((1, d, block_q), lambda g, i: (g, 0, i)),
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("parallel", "arbitrary"),
-            vmem_limit_bytes=110 * 1024 * 1024,
-        ),
-        interpret=interpret,
-    )(q_t, k_t, v_t)
-    return out.reshape(h, d, b, sq)
-
-
-@functools.lru_cache(maxsize=64)
-def _self_attention_cm_diff(heads, scale, block_q, interpret):
-    """Fused self-attention block from the [B, S, C] residual stream:
-    qkv projection emits channel-major [3C, B, S] directly (the layout the
-    kernel consumes), and the out-projection contracts the channel-major
-    result back to [B, S, C] — the two 20 MB XLA relayouts per site of the
-    bhds path never exist. Pallas forward, XLA-recompute backward."""
-
-    def _fwd(x, wq, wk, wv, wo, bo):
-        b, s, c = x.shape
-        d = c // heads
-        wq, wk, wv, wo = (
-            z.astype(x.dtype) for z in (wq, wk, wv, wo)
-        )
-        w = jnp.concatenate([wq, wk, wv], axis=1)  # [C, 3C]
-        qkv = jax.lax.dot_general(
-            w, x, (((0,), (2,)), ((), ()))
-        )  # [3C, B, S]
-        qkv = qkv.reshape(3, heads, d, b, s)
-        out = _onepass_attention_hdbs(
-            qkv[0], qkv[1], qkv[2],
-            scale=scale, block_q=block_q, interpret=interpret,
-        )  # [H, D, B, S]
-        out = out.reshape(c, b, s)
-        y = jax.lax.dot_general(
-            out, wo, (((0,), (0,)), ((), ()))
-        )  # [B, S, C]
-        return y + bo.astype(y.dtype)
-
-    def _ref(x, wq, wk, wv, wo, bo):
-        b, s, c = x.shape
-        d = c // heads
-        wq, wk, wv, wo = (
-            z.astype(x.dtype) for z in (wq, wk, wv, wo)
-        )
-
-        def split(z):
-            return z.reshape(b, s, heads, d).transpose(0, 2, 1, 3)
-
-        q = split(jnp.dot(x, wq))
-        k = split(jnp.dot(x, wk))
-        v = split(jnp.dot(x, wv))
-        o = _xla_attention(q, k, v, scale)
-        o = o.transpose(0, 2, 1, 3).reshape(b, s, c)
-        return jnp.dot(o, wo) + bo.astype(o.dtype)
-
-    @jax.custom_vjp
-    def fn(x, wq, wk, wv, wo, bo):
-        return _fwd(x, wq, wk, wv, wo, bo)
-
-    def fwd(*args):
-        return fn(*args), args
-
-    def bwd(res, g):
-        _, vjp = jax.vjp(_ref, *res)
-        return vjp(g)
-
-    fn.defvjp(fwd, bwd)
-    return fn
-
-
-def self_attention_cm(
-    x, wq, wk, wv, wo, bo, num_heads: int,
-    scale: Optional[float] = None,
-    *,
-    interpret: bool = False,
-):
-    """Self-attention block on the [B, S, C] stream with channel-major
-    internals (see `_self_attention_cm_diff`). TPU SD-scale only — callers
-    fall back to the split-path `attention()` elsewhere."""
-    c = x.shape[-1]
-    s = x.shape[1]
-    d = c // num_heads
-    if scale is None:
-        scale = d**-0.5
-    bq = min(_onepass_block_q(s, s), s)
-    while s % bq:
-        bq //= 2
-    return _self_attention_cm_diff(num_heads, scale, bq, interpret)(
-        x, wq, wk, wv, wo, bo
-    )
-
-
-@functools.partial(
-    jax.jit, static_argnames=("scale", "block_q", "interpret")
-)
-def _onepass_attention_bhds(
-    q_t, k_t, v_t, *, scale: float, block_q: int, interpret: bool
-):
-    """Core one-pass call. q_t: [BH, D, Sq]; k_t: [BH, D, Skv];
-    v_t: [BH, D+1, Skv] (ones-row already appended)."""
-    bh, d, sq = q_t.shape
-    kv_len = k_t.shape[2]
-    skv_pad = _round_up(kv_len, 128)
-    sq_pad = _round_up(sq, block_q)
-    if sq_pad != sq:
-        q_t = jnp.pad(q_t, ((0, 0), (0, 0), (0, sq_pad - sq)))
-    if skv_pad != kv_len:
-        k_t = jnp.pad(k_t, ((0, 0), (0, 0), (0, skv_pad - kv_len)))
-        v_t = jnp.pad(v_t, ((0, 0), (0, 0), (0, skv_pad - kv_len)))
-    grid = (bh, sq_pad // block_q)
-    out = pl.pallas_call(
-        functools.partial(
-            _onepass_kernel, scale=scale, kv_len=kv_len, skv_pad=skv_pad
-        ),
-        out_shape=jax.ShapeDtypeStruct((bh, d, sq_pad), q_t.dtype),
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((1, d, block_q), lambda b, i: (b, 0, i)),
-            pl.BlockSpec((1, d, skv_pad), lambda b, i: (b, 0, 0)),
-            pl.BlockSpec((1, d + 1, skv_pad), lambda b, i: (b, 0, 0)),
-        ],
-        out_specs=pl.BlockSpec((1, d, block_q), lambda b, i: (b, 0, i)),
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("parallel", "parallel"),
-            vmem_limit_bytes=110 * 1024 * 1024,
-        ),
-        interpret=interpret,
-    )(q_t, k_t, v_t)
-    return out if sq_pad == sq else out[:, :, :sq]
-
-
-def _onepass_kernel_kcanon(q_ref, k_ref, v_ref, o_ref, *, scale, kv_len, skv_pad):
-    """`_onepass_kernel` with K in CANONICAL [Skv, d] layout.
-
-    The transposed kernel's scores matmul contracts d on the SUBLANES of
-    both operands, which Mosaic runs at f32 rate (~37 TF/s useful,
-    docs/PERF.md round-2 close-out). With k canonical the contraction is
-    lhs-lanes x rhs-sublanes — the native MXU orientation — running at full
-    bf16 rate on d->128 padded work (~61 TF/s useful at d=40: 1.66x).
-    Round 2's H1 experiment (scripts/perf_attn11.py) proved the kernel-only
-    win but paid an XLA k-transpose that ate it; here k is simply NOT
-    transposed by the wrapper (the relayout disappears, it doesn't move).
-    PV is unchanged (already canonical at full rate)."""
-    q = q_ref[0]  # [d, block_q]
-    k = k_ref[0]  # [skv_pad, d] canonical
-    s = jax.lax.dot_general(
-        k, q, (((1,), (0,)), ((), ())), preferred_element_type=jnp.float32
-    )  # [skv_pad, block_q]
-    s = s * (scale * _LOG2E)
-    if skv_pad > kv_len:
-        row = jax.lax.broadcasted_iota(jnp.int32, s.shape, 0)
-        s = jnp.where(row < kv_len, s, _NEG_INF)
-    m = jnp.max(s, axis=0, keepdims=True)  # [1, block_q]
-    p = jnp.exp2(s - m).astype(v_ref.dtype)
-    v = v_ref[0]  # [d+1, skv_pad]; last row ones
-    o = jax.lax.dot_general(
-        v, p, (((1,), (0,)), ((), ())), preferred_element_type=jnp.float32
-    )  # [d+1, block_q]
-    d = o.shape[0] - 1
-    o_ref[0] = (o[:d] / o[d:]).astype(o_ref.dtype)
-
-
-@functools.partial(jax.jit, static_argnames=("scale", "block_q", "interpret"))
-def _onepass_attention_kcanon(
-    q_t, k_n, v_t, *, scale: float, block_q: int, interpret: bool
-):
-    """One-pass call with canonical K. q_t: [BH, D, Sq]; k_n: [BH, Skv, D];
-    v_t: [BH, D+1, Skv] (ones-row already appended)."""
-    bh, d, sq = q_t.shape
-    kv_len = k_n.shape[1]
-    skv_pad = _round_up(kv_len, 128)
-    sq_pad = _round_up(sq, block_q)
-    if sq_pad != sq:
-        q_t = jnp.pad(q_t, ((0, 0), (0, 0), (0, sq_pad - sq)))
-    if skv_pad != kv_len:
-        k_n = jnp.pad(k_n, ((0, 0), (0, skv_pad - kv_len), (0, 0)))
-        v_t = jnp.pad(v_t, ((0, 0), (0, 0), (0, skv_pad - kv_len)))
-    grid = (bh, sq_pad // block_q)
-    out = pl.pallas_call(
-        functools.partial(
-            _onepass_kernel_kcanon, scale=scale, kv_len=kv_len, skv_pad=skv_pad
-        ),
-        out_shape=jax.ShapeDtypeStruct((bh, d, sq_pad), q_t.dtype),
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((1, d, block_q), lambda b, i: (b, 0, i)),
-            pl.BlockSpec((1, skv_pad, d), lambda b, i: (b, 0, 0)),
-            pl.BlockSpec((1, d + 1, skv_pad), lambda b, i: (b, 0, 0)),
-        ],
-        out_specs=pl.BlockSpec((1, d, block_q), lambda b, i: (b, 0, i)),
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("parallel", "parallel"),
-            vmem_limit_bytes=110 * 1024 * 1024,
-        ),
-        interpret=interpret,
-    )(q_t, k_n, v_t)
-    return out if sq_pad == sq else out[:, :, :sq]
-
-
-def _onepass_block_q(sq: int, kv_len: int) -> int:
-    """Largest 128-multiple query block whose [Skv, bq] f32 score block plus
-    bf16 probability block stays within ~48 MB of VMEM, capped at 2048
-    (bench sweep at the SD batch: 512 -> 62.6 ms/step, 1024 -> 60.9,
-    2048 -> 60.4, 4096 -> 60.5)."""
-    skv_pad = _round_up(kv_len, 128)
-    budget = 48 * 1024 * 1024
-    bq = budget // (6 * skv_pad)
-    bq = max(128, min(2048, bq // 128 * 128))
-    return min(bq, _round_up(sq, 128))
-
-
-@functools.lru_cache(maxsize=64)
-def _onepass_attention_diff(scale, block_q, interpret):
-    """Differentiable one-pass attention on [B, H, S, D]: Pallas forward,
-    XLA-recompute backward (guidance takes grads through the UNet)."""
-
-    def _fwd_pallas(q, k, v):
-        b, h, sq, d = q.shape
-        kv = k.shape[2]
-        q_t = q.reshape(b * h, sq, d).transpose(0, 2, 1)
-        v_t = v.reshape(b * h, kv, d).transpose(0, 2, 1)
-        v_t = jnp.concatenate(
-            [v_t, jnp.ones((b * h, 1, kv), v_t.dtype)], axis=1
-        )
-        if _USE_KCANON:
-            # k stays canonical: its wrapper transpose disappears entirely
-            out_t = _onepass_attention_kcanon(
-                q_t, k.reshape(b * h, kv, d), v_t,
-                scale=scale, block_q=block_q, interpret=interpret,
-            )
-        else:
-            k_t = k.reshape(b * h, kv, d).transpose(0, 2, 1)
-            out_t = _onepass_attention_bhds(
-                q_t, k_t, v_t, scale=scale, block_q=block_q,
-                interpret=interpret,
-            )
-        return out_t.transpose(0, 2, 1).reshape(b, h, sq, d)
-
-    @jax.custom_vjp
-    def fn(q, k, v):
-        return _fwd_pallas(q, k, v)
-
-    def fwd(q, k, v):
-        return fn(q, k, v), (q, k, v)
-
-    def bwd(res, g):
-        q, k, v = res
-        _, vjp = jax.vjp(lambda a, b, c: _xla_attention(a, b, c, scale), q, k, v)
-        return vjp(g)
-
-    fn.defvjp(fwd, bwd)
-    return fn
+__all__ = ["attention"]
 
 
 def _xla_attention(q, k, v, scale):
-    """Reference-semantics attention in plain XLA (softmax in f32)."""
+    """Reference-semantics attention in plain XLA on [B, H, S, D] (softmax
+    in f32, matmuls accumulate in f32)."""
     s = jnp.einsum("bhqd,bhkd->bhqk", q, k, preferred_element_type=jnp.float32)
     p = jax.nn.softmax(s * scale, axis=-1)
     return jnp.einsum(
@@ -508,265 +45,32 @@ def _xla_attention(q, k, v, scale):
     ).astype(q.dtype)
 
 
-@functools.lru_cache(maxsize=64)
-def _onepass_merged_diff(scale, block_q, heads, interpret):
-    """One-pass attention straight from the merged [B, S, H*D] layout —
-    a single [B,S,H,D] -> [BH, D, S] relayout each way instead of the
-    split-head [B,H,S,D] detour (saves ~0.3 ms/site at SD shapes)."""
-
-    def _split(x, b, d):
-        return x.reshape(b, x.shape[1], heads, d).transpose(0, 2, 1, 3)
-
-    def _fwd_pallas(q, k, v):
-        b, sq, inner = q.shape
-        kv = k.shape[1]
-        d = inner // heads
-
-        def t(x):
-            return (
-                x.reshape(b, x.shape[1], heads, d)
-                .transpose(0, 2, 3, 1)
-                .reshape(b * heads, d, x.shape[1])
-            )
-
-        q_t, v_t = t(q), t(v)
-        v_t = jnp.concatenate(
-            [v_t, jnp.ones((b * heads, 1, kv), v_t.dtype)], axis=1
-        )
-        if _USE_KCANON:
-            k_n = (
-                k.reshape(b, kv, heads, d)
-                .transpose(0, 2, 1, 3)
-                .reshape(b * heads, kv, d)
-            )
-            out_t = _onepass_attention_kcanon(
-                q_t, k_n, v_t, scale=scale, block_q=block_q,
-                interpret=interpret,
-            )
-        else:
-            out_t = _onepass_attention_bhds(
-                q_t, t(k), v_t, scale=scale, block_q=block_q,
-                interpret=interpret,
-            )
-        return (
-            out_t.reshape(b, heads, d, sq)
-            .transpose(0, 3, 1, 2)
-            .reshape(b, sq, inner)
-        )
-
-    @jax.custom_vjp
-    def fn(q, k, v):
-        return _fwd_pallas(q, k, v)
-
-    def fwd(q, k, v):
-        return fn(q, k, v), (q, k, v)
-
-    def bwd(res, g):
-        q, k, v = res
-        b, sq, inner = q.shape
-        d = inner // heads
-
-        def ref(a, bb, c):
-            o = _xla_attention(
-                _split(a, b, d), _split(bb, b, d), _split(c, b, d), scale
-            )
-            return o.transpose(0, 2, 1, 3).reshape(b, sq, inner)
-
-        _, vjp = jax.vjp(ref, q, k, v)
-        return vjp(g)
-
-    fn.defvjp(fwd, bwd)
-    return fn
-
-
-@functools.lru_cache(maxsize=64)
-def _pallas_attention_diff(scale, block_q, block_k, interpret):
-    """Differentiable wrapper: Pallas forward, XLA-recompute backward (the
-    kernel has no VJP; CLIP guidance takes grads through the UNet/VAE)."""
-
-    def _fwd_pallas(q, k, v):
-        b, h, sq, d = q.shape
-        d_pad = _round_up(d, 128)
-        if d_pad != d:
-            pad = ((0, 0), (0, 0), (0, 0), (0, d_pad - d))
-            q = jnp.pad(q, pad)
-            k = jnp.pad(k, pad)
-            v = jnp.pad(v, pad)
-        out = _flash_attention_bhsd(
-            q.reshape(b * h, sq, d_pad),
-            k.reshape(b * h, k.shape[2], d_pad),
-            v.reshape(b * h, v.shape[2], d_pad),
-            scale=scale,
-            block_q=block_q,
-            block_k=block_k,
-            interpret=interpret,
-        )
-        return out.reshape(b, h, sq, d_pad)[..., :d]
-
-    @jax.custom_vjp
-    def fn(q, k, v):
-        return _fwd_pallas(q, k, v)
-
-    def fwd(q, k, v):
-        return fn(q, k, v), (q, k, v)
-
-    def bwd(res, g):
-        q, k, v = res
-        _, vjp = jax.vjp(lambda a, b, c: _xla_attention(a, b, c, scale), q, k, v)
-        return vjp(g)
-
-    fn.defvjp(fwd, bwd)
-    return fn
-
-
-def flash_attention(
-    q: jax.Array,
-    k: jax.Array,
-    v: jax.Array,
-    scale: Optional[float] = None,
-    *,
-    block_q: Optional[int] = None,
-    block_k: Optional[int] = None,
-    use_pallas: Optional[bool] = None,
-    interpret: bool = False,
-) -> jax.Array:
-    """Multi-head attention, [B, H, S, D] layout, no mask (SD is non-causal).
-
-    ``scale`` defaults to 1/sqrt(D) using the *unpadded* head dim. Dispatches
-    to the Pallas kernel on TPU and to a plain-XLA softmax attention
-    elsewhere (CPU tests) — both paths compute softmax in f32.
-    ``interpret=True`` forces the Pallas kernel in interpreter mode (kernel
-    logic tests on CPU).
-
-    Small-KV dispatch: cross-attention against short contexts (CLIP's 77
-    tokens) is bandwidth-trivial — the flash machinery (scratch init,
-    running-max bookkeeping) costs ~2x a plain fused softmax there
-    (scripts/perf_attn7.py: 1.59 vs 0.81 ms at BH64 S4096 kv77), so KV
-    lengths <= 128 route to XLA even on TPU.
-
-    Block defaults come from the bench-batch sweep (B8 x H8): long sequences
-    (S >= 4096) run best at 512x4096 (5.36 vs 6.06 ms for the old
-    1024x2048); shorter ones at 512x1024.
-    """
-    b, h, sq, d = q.shape
-    kv = k.shape[2]
-    if scale is None:
-        scale = 1.0 / math.sqrt(d)
-
-    if use_pallas == "interpret":  # ShardCtx.local_use_pallas sentinel
-        use_pallas, interpret = True, True
-    if use_pallas is None:
-        use_pallas = jax.default_backend() == "tpu"
-    if kv <= 128 and not interpret:
-        return _xla_attention(q, k, v, scale)
-    if not (use_pallas or interpret):
-        return _xla_attention(q, k, v, scale)
-
-    if block_k is None and kv <= _ONEPASS_MAX_KV and d <= 256:
-        # One-pass transposed kernel: whole KV row in VMEM, d on sublanes.
-        # d-cap: the whole-KV-resident working set scales with d — the VAE
-        # mid-block's single-head d=512 @ S=4096 attention OOMs VMEM at
-        # bf16 (139 MB; the in-kernel f32 casts double the KV footprint),
-        # and wide-d heads are what the streaming kernel tiles well anyway.
-        bq = block_q if block_q is not None else _onepass_block_q(sq, kv)
-        return _onepass_attention_diff(scale, bq, interpret)(q, k, v)
-
-    # Streaming online-softmax kernel (explicit block_k, or very long KV).
-    if block_q is None:
-        block_q = 512 if sq >= 512 else sq
-    if block_k is None:
-        block_k = 4096 if kv >= 4096 else 1024
-
-    return _pallas_attention_diff(scale, block_q, block_k, interpret)(q, k, v)
-
-
-def _sharded_attention(q, k, v, num_heads: int, scale: float, ctx):
-    """Mesh-partitioned attention: shard_map over (batch -> data axis,
-    heads -> model axis) so each device runs the Pallas kernel on its local
-    (B/dp, H/tp) slab — batch and heads are embarrassingly parallel in the
-    kernel grid. The row-parallel to_out psum outside stays GSPMD's job.
-
-    Falls back per-dimension: an axis that does not divide the dim is left
-    unsharded (GSPMD replicates along it at the shard_map boundary), and
-    short-KV cross-attention keeps the XLA fused-softmax path, which GSPMD
-    partitions cleanly through the sharded head projections."""
-    from complex_prompt_diffusion_tpu.ops.sharding import axis_if_divisible
-
-    b, sq, inner = q.shape
-    kv = k.shape[1]
-    d = inner // num_heads
-    if kv <= 128 and not ctx.interpret:
-        return attention(q, k, v, num_heads, scale, use_pallas=False)
-    data = axis_if_divisible(ctx, ctx.data_axis, b)
-    model = axis_if_divisible(ctx, ctx.model_axis, num_heads)
-    if data is None and model is None:
-        return attention(
-            q, k, v, num_heads, scale,
-            use_pallas=ctx.local_use_pallas(),
-        )
-
-    def split(x):
-        return x.reshape(b, x.shape[1], num_heads, d).transpose(0, 2, 1, 3)
-
-    spec = jax.sharding.PartitionSpec(data, model, None, None)
-    local = functools.partial(
-        flash_attention,
-        scale=scale,
-        use_pallas=ctx.local_use_pallas(),
-        interpret=ctx.interpret,
-    )
-    out = jax.shard_map(
-        local,
-        mesh=ctx.mesh,
-        in_specs=(spec, spec, spec),
-        out_specs=spec,
-        check_vma=False,
-    )(split(q), split(k), split(v))
-    return out.transpose(0, 2, 1, 3).reshape(b, sq, inner)
-
-
 def attention(
     q: jax.Array,
     k: jax.Array,
     v: jax.Array,
     num_heads: int,
     scale: Optional[float] = None,
-    use_pallas=None,
-    interpret: bool = False,
 ) -> jax.Array:
-    """Attention over [B, S, H*D] tensors (the SpatialTransformer layout,
-    reference attention.py:280-348). Splits heads, runs flash attention,
-    re-merges. When the one-pass kernel applies, uses a direct
-    merged-layout path that skips the intermediate [B,H,S,D] relayout.
-
-    ``use_pallas`` may be a :class:`ops.sharding.ShardCtx`: the kernel is
-    then wrapped in shard_map over the mesh (batch over the data axis,
-    heads over the model axis) so tensor/data parallelism composes with the
-    Pallas path instead of falling back to XLA."""
+    """Non-causal attention over [B, S, H*D] tensors (q: [B, Sq, H*D];
+    k, v: [B, Skv, H*D]). ``scale`` defaults to 1/sqrt(D)."""
     b, sq, inner = q.shape
     kv = k.shape[1]
     d = inner // num_heads
     if scale is None:
         scale = 1.0 / math.sqrt(d)
-    from complex_prompt_diffusion_tpu.ops.sharding import ShardCtx
-
-    if isinstance(use_pallas, ShardCtx):
-        return _sharded_attention(q, k, v, num_heads, scale, use_pallas)
-    if use_pallas == "interpret":  # ShardCtx.local_use_pallas sentinel
-        use_pallas, interpret = True, True
-    if use_pallas is None:
-        use_pallas = jax.default_backend() == "tpu"
-    if use_pallas and 128 < kv <= _ONEPASS_MAX_KV and d <= 256:
-        # d-cap mirrors mha(): wide heads (VAE mid-block d=512) OOM the
-        # whole-KV-resident kernel's VMEM at bf16; streaming tiles them.
-        bq = _onepass_block_q(sq, kv)
-        return _onepass_merged_diff(scale, bq, num_heads, interpret)(q, k, v)
+    if attention_route(jax.default_backend(), q.dtype, d, kv) == "cudnn":
+        out = jax.nn.dot_product_attention(
+            q.reshape(b, sq, num_heads, d),
+            k.reshape(b, kv, num_heads, d),
+            v.reshape(b, kv, num_heads, d),
+            scale=scale,
+            implementation="cudnn",
+        )
+        return out.reshape(b, sq, inner)
 
     def split(x):
         return x.reshape(b, x.shape[1], num_heads, d).transpose(0, 2, 1, 3)
 
-    out = flash_attention(
-        split(q), split(k), split(v), scale,
-        use_pallas=use_pallas, interpret=interpret,
-    )
+    out = _xla_attention(split(q), split(k), split(v), scale)
     return out.transpose(0, 2, 1, 3).reshape(b, sq, inner)

@@ -1,456 +1,29 @@
-"""Fused GroupNorm(+SiLU) for TPU.
+"""GroupNorm(+SiLU) over NHWC in plain XLA.
 
 The GroupNorm -> SiLU -> Conv pattern is the hot elementwise chain of both
-the UNet ResBlock (/root/reference/cpd/models/unet.py:207-238) and the VAE
-(/root/reference/cpd/models/autoencoder.py:153-179). XLA computes it with two
-HBM passes over the activation (reduce, then normalize); the Pallas kernel
-below does it in one pass when a sample fits in VMEM, computing group
-statistics via a tiny one-hot matmul (channels -> groups) to avoid lane-dim
-reshapes.
+the UNet ResBlock (cpd/models/unet.py:207-238) and the VAE
+(cpd/models/autoencoder.py:153-179). On the GPU, XLA fuses the statistics
+reduction and the normalise+affine+SiLU pass into a few bandwidth-bound
+fusions. Statistics are computed in f32 whatever the storage dtype,
+matching the reference's GroupNorm32.
 
-Layout: NHWC (TPU-native). Weights gamma/beta are per-channel [C].
+Weights gamma/beta are per-channel [C].
 """
 
 from __future__ import annotations
 
-import functools
-import os
-from typing import Optional
-
 import jax
 import jax.numpy as jnp
-import numpy as np
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 __all__ = ["group_norm", "group_norm_silu"]
 
-# Per-sample VMEM budget for the single-pass kernel (bytes of f32 activation).
-_VMEM_BUDGET = 16 * 1024 * 1024
 
-# One-pass E[x^2]-E[x]^2 stats for <=16-bit inputs (A/B gate, read once at
-# import like CPD_TPU_PALLAS_CONV — trace-time semantics documented there).
-_ONE_PASS = os.environ.get("CPD_TPU_GN_TWO_PASS", "0") != "1"
-
-# Implementation override for A/B runs (read once at import, trace-time
-# semantics): "auto" (shape/batch dispatch), "pallas", "xla_mm"
-# (matmul-stats XLA, no lane reshape), "xla" (reshape-based reference).
-_GN_IMPL = os.environ.get("CPD_TPU_GN_IMPL", "auto")
-
-
-def _use_xla_mm(x, interpret: bool) -> bool:
-    """auto routes <=16-bit inputs to the matmul-stats XLA GroupNorm: the
-    bench A/B measured it 4.5 ms/step faster than the one-pass Pallas
-    kernel at batch 4 (60.2 -> 55.6-55.8 ms — the Pallas copy pipeline
-    streams at only ~180 GB/s vs XLA's ~424 GB/s fused elementwise rate
-    (scripts/perf_gn7.py), a floor no kernel variant or buffering mode
-    lifts, while the XLA form fuses into the surrounding graph with no
-    lane reshape; docs/PERF.md round 3). One-pass E[x^2] stats in f32
-    accumulators match the Pallas kernel's <=16-bit contract; f32 inputs
-    keep the exact two-pass paths. interpret mode keeps the Pallas
-    kernels under test."""
-    if interpret:
-        return False
-    if _GN_IMPL == "xla_mm":
-        return True
-    return _GN_IMPL == "auto" and jnp.dtype(x.dtype).itemsize <= 2
-
-
-def _gn_kernel(
-    x_ref, gamma_ref, beta_ref, c2g_ref, o_ref, *, eps, n_per_group, silu,
-    one_pass,
-):
-    """One grid step = one sample. x: [1, HW, C]."""
-    x = x_ref[0].astype(jnp.float32)  # [HW, C]
-    c2g = c2g_ref[...]  # [C, G] one-hot (f32)
-
-    def gsum(a):  # per-channel sum -> per-group sum -> back per channel
-        s = jnp.dot(a, c2g, preferred_element_type=jnp.float32,
-                    precision=jax.lax.Precision.HIGHEST)
-        return s
-
-    def to_c(g):
-        return jnp.dot(g, c2g.T, preferred_element_type=jnp.float32,
-                       precision=jax.lax.Precision.HIGHEST)
-
-    if one_pass:
-        # E[x^2]-E[x]^2 stats: one VPU pass over x instead of two. Loses
-        # ~3 digits to cancellation in f32 — used only for <=16-bit inputs,
-        # where the residual accuracy still exceeds the storage dtype.
-        s1 = jnp.sum(x, axis=0, keepdims=True)  # [1, C]
-        s2 = jnp.sum(x * x, axis=0, keepdims=True)
-        mean_g = gsum(s1) / n_per_group
-        ex2_g = gsum(s2) / n_per_group
-        var_g = jnp.maximum(ex2_g - mean_g * mean_g, 0.0)
-        mean_c = to_c(mean_g)
-        xc = x - mean_c
-    else:
-        # two-pass stats (x is VMEM-resident, the second pass is cheap)
-        s1 = jnp.sum(x, axis=0, keepdims=True)  # [1, C]
-        mean_g = gsum(s1) / n_per_group
-        mean_c = to_c(mean_g)
-        xc = x - mean_c
-        s2 = jnp.sum(xc * xc, axis=0, keepdims=True)
-        var_g = gsum(s2) / n_per_group
-    rstd_g = jax.lax.rsqrt(var_g + eps)
-    rstd_c = to_c(rstd_g)
-
-    y = xc * rstd_c
-    y = y * gamma_ref[...].astype(jnp.float32) + beta_ref[...].astype(jnp.float32)
-    if silu:
-        y = y * jax.nn.sigmoid(y)
-    o_ref[0] = y.astype(o_ref.dtype)
-
-
-@functools.partial(jax.jit, static_argnames=("num_groups", "eps", "silu", "interpret"))
-def _gn_pallas(x, gamma, beta, *, num_groups, eps, silu, interpret):
+def _gn(x, gamma, beta, num_groups, eps, silu):
+    """GroupNorm through a [N, HW, G, C/G] reshape (free on the GPU) with
+    two-pass (centred) variance in f32."""
     n, h, w, c = x.shape
-    hw = h * w
-    xr = x.reshape(n, hw, c)
-    c2g = np.zeros((c, num_groups), dtype=np.float32)
-    group_size = c // num_groups
-    for g in range(num_groups):
-        c2g[g * group_size : (g + 1) * group_size, g] = 1.0
-    c2g = jnp.asarray(c2g)
-
-    one_pass = _ONE_PASS and jnp.dtype(x.dtype).itemsize <= 2
-    out = pl.pallas_call(
-        functools.partial(
-            _gn_kernel, eps=eps, n_per_group=float(hw * group_size),
-            silu=silu, one_pass=one_pass,
-        ),
-        out_shape=jax.ShapeDtypeStruct((n, hw, c), x.dtype),
-        grid=(n,),
-        in_specs=[
-            pl.BlockSpec((1, hw, c), lambda i: (i, 0, 0)),
-            pl.BlockSpec((1, c), lambda i: (0, 0)),
-            pl.BlockSpec((1, c), lambda i: (0, 0)),
-            pl.BlockSpec((c, num_groups), lambda i: (0, 0)),
-        ],
-        out_specs=pl.BlockSpec((1, hw, c), lambda i: (i, 0, 0)),
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("parallel",),
-            # one f32 pass over the sample + temps; the 16MB default scoped
-            # limit is conservative (v5e has 128MB VMEM)
-            vmem_limit_bytes=100 * 1024 * 1024,
-        ),
-        interpret=interpret,
-    )(xr, gamma.reshape(1, c), beta.reshape(1, c), c2g)
-    return out.reshape(n, h, w, c)
-
-
-def _gn_stats_kernel(x_ref, c2g_ref, stats_ref, s1_ref, s2_ref, *, eps,
-                     n_per_group, nk):
-    """Streaming stats pass: grid (n, nk), one HW chunk per step. f32
-    accumulators persist in scratch across the (sequential) chunk steps;
-    the final step reduces channels -> groups and writes [mean_c; rstd_c]."""
-    k = pl.program_id(1)
-
-    @pl.when(k == 0)
-    def _init():
-        s1_ref[...] = jnp.zeros_like(s1_ref)
-        s2_ref[...] = jnp.zeros_like(s2_ref)
-
-    x = x_ref[0].astype(jnp.float32)  # [chunk_hw, C]
-    s1_ref[...] += jnp.sum(x, axis=0, keepdims=True)
-    s2_ref[...] += jnp.sum(x * x, axis=0, keepdims=True)
-
-    @pl.when(k == nk - 1)
-    def _finalize():
-        c2g = c2g_ref[...]  # [C, G]
-        hi = jax.lax.Precision.HIGHEST
-        mean_g = jnp.dot(s1_ref[...], c2g, preferred_element_type=jnp.float32,
-                         precision=hi) / n_per_group
-        ex2_g = jnp.dot(s2_ref[...], c2g, preferred_element_type=jnp.float32,
-                        precision=hi) / n_per_group
-        var_g = jnp.maximum(ex2_g - mean_g * mean_g, 0.0)
-        rstd_g = jax.lax.rsqrt(var_g + eps)
-        mean_c = jnp.dot(mean_g, c2g.T, preferred_element_type=jnp.float32,
-                         precision=hi)
-        rstd_c = jnp.dot(rstd_g, c2g.T, preferred_element_type=jnp.float32,
-                         precision=hi)
-        stats_ref[0] = jnp.concatenate([mean_c, rstd_c], axis=0)  # [2, C]
-
-
-def _gn_stats2_kernel(x_ref, c2g_ref, stats_ref, s_ref, mean_ref, *, eps,
-                      n_per_group, nk):
-    """Two-pass streaming stats for f32 inputs: grid (n, 2, nk). Phase 0
-    accumulates per-channel sums -> group means; phase 1 re-reads the
-    chunks and accumulates centered squares (no E[x²] cancellation, so the
-    result matches the XLA/torch two-pass contract at f32 precision)."""
-    p = pl.program_id(1)
-    k = pl.program_id(2)
-    hi = jax.lax.Precision.HIGHEST
-
-    @pl.when((p == 0) & (k == 0))
-    def _init():
-        s_ref[...] = jnp.zeros_like(s_ref)
-
-    x = x_ref[0].astype(jnp.float32)  # [chunk_hw, C]
-
-    @pl.when(p == 0)
-    def _acc_sum():
-        s_ref[...] += jnp.sum(x, axis=0, keepdims=True)
-
-    @pl.when((p == 0) & (k == nk - 1))
-    def _mean():
-        c2g = c2g_ref[...]
-        mean_g = jnp.dot(s_ref[...], c2g, preferred_element_type=jnp.float32,
-                         precision=hi) / n_per_group
-        mean_ref[...] = jnp.dot(mean_g, c2g.T,
-                                preferred_element_type=jnp.float32,
-                                precision=hi)
-        s_ref[...] = jnp.zeros_like(s_ref)
-
-    @pl.when(p == 1)
-    def _acc_var():
-        xc = x - mean_ref[...]
-        s_ref[...] += jnp.sum(xc * xc, axis=0, keepdims=True)
-
-    @pl.when((p == 1) & (k == nk - 1))
-    def _finalize():
-        c2g = c2g_ref[...]
-        var_g = jnp.dot(s_ref[...], c2g, preferred_element_type=jnp.float32,
-                        precision=hi) / n_per_group
-        rstd_g = jax.lax.rsqrt(var_g + eps)
-        rstd_c = jnp.dot(rstd_g, c2g.T, preferred_element_type=jnp.float32,
-                         precision=hi)
-        stats_ref[0] = jnp.concatenate([mean_ref[...], rstd_c], axis=0)
-
-
-def _gn_apply_kernel(x_ref, stats_ref, gamma_ref, beta_ref, o_ref, *, silu):
-    """Normalize + affine (+SiLU) one HW chunk using the precomputed stats."""
-    x = x_ref[0].astype(jnp.float32)  # [chunk_hw, C]
-    st = stats_ref[0]  # [2, C]
-    y = (x - st[0:1]) * st[1:2]
-    y = y * gamma_ref[...].astype(jnp.float32) + beta_ref[...].astype(jnp.float32)
-    if silu:
-        y = y * jax.nn.sigmoid(y)
-    o_ref[0] = y.astype(o_ref.dtype)
-
-
-def _chunk_hw(hw: int, c: int, itemsize: int) -> int:
-    """Largest power-of-two HW chunk dividing hw with a ≤4 MB input block
-    (double-buffered by the pipeline; f32 temps stay well inside VMEM).
-    Returns 0 if no usable chunk exists (caller falls back to XLA)."""
-    target = (4 * 1024 * 1024) // max(c * itemsize, 1)
-    ch = 1 << max(target.bit_length() - 1, 0)
-    while ch >= 256 and hw % ch:
-        ch //= 2
-    return ch if ch >= 256 and hw % ch == 0 else 0
-
-
-@functools.partial(jax.jit, static_argnames=("num_groups", "eps", "silu", "interpret"))
-def _gn_chunked(x, gamma, beta, *, num_groups, eps, silu, interpret):
-    """Two-kernel chunked GroupNorm for activations too large for the
-    single-pass kernel's VMEM budget (VAE decode at 512²+: the XLA fallback
-    measured 39.7 of the 62.5 ms/img decode — docs/PERF.md round 3).
-    ≤16-bit storage: one-pass E[x²] stats in f32 accumulators (2R+1W, the
-    exact-GN traffic minimum). f32 storage: two-pass streaming stats
-    (3R+1W) — no cancellation, matches the XLA/torch contract."""
-    n, h, w, c = x.shape
-    hw = h * w
-    ch = _chunk_hw(hw, c, jnp.dtype(x.dtype).itemsize)
-    nk = hw // ch
-    xr = x.reshape(n, hw, c)
-    c2g = np.zeros((c, num_groups), dtype=np.float32)
-    group_size = c // num_groups
-    for g in range(num_groups):
-        c2g[g * group_size : (g + 1) * group_size, g] = 1.0
-    c2g = jnp.asarray(c2g)
-
-    one_pass = jnp.dtype(x.dtype).itemsize <= 2
-    if one_pass:
-        stats = pl.pallas_call(
-            functools.partial(
-                _gn_stats_kernel, eps=eps,
-                n_per_group=float(hw * group_size), nk=nk,
-            ),
-            out_shape=jax.ShapeDtypeStruct((n, 2, c), jnp.float32),
-            grid=(n, nk),
-            in_specs=[
-                pl.BlockSpec((1, ch, c), lambda i, k: (i, k, 0)),
-                pl.BlockSpec((c, num_groups), lambda i, k: (0, 0)),
-            ],
-            out_specs=pl.BlockSpec((1, 2, c), lambda i, k: (i, 0, 0)),
-            scratch_shapes=[
-                pltpu.VMEM((1, c), jnp.float32),
-                pltpu.VMEM((1, c), jnp.float32),
-            ],
-            compiler_params=pltpu.CompilerParams(
-                dimension_semantics=("parallel", "arbitrary"),
-                vmem_limit_bytes=100 * 1024 * 1024,
-            ),
-            interpret=interpret,
-        )(xr, c2g)
-    else:
-        stats = pl.pallas_call(
-            functools.partial(
-                _gn_stats2_kernel, eps=eps,
-                n_per_group=float(hw * group_size), nk=nk,
-            ),
-            out_shape=jax.ShapeDtypeStruct((n, 2, c), jnp.float32),
-            grid=(n, 2, nk),
-            in_specs=[
-                pl.BlockSpec((1, ch, c), lambda i, p, k: (i, k, 0)),
-                pl.BlockSpec((c, num_groups), lambda i, p, k: (0, 0)),
-            ],
-            out_specs=pl.BlockSpec((1, 2, c), lambda i, p, k: (i, 0, 0)),
-            scratch_shapes=[
-                pltpu.VMEM((1, c), jnp.float32),
-                pltpu.VMEM((1, c), jnp.float32),
-            ],
-            compiler_params=pltpu.CompilerParams(
-                dimension_semantics=("parallel", "arbitrary", "arbitrary"),
-                vmem_limit_bytes=100 * 1024 * 1024,
-            ),
-            interpret=interpret,
-        )(xr, c2g)
-
-    out = pl.pallas_call(
-        functools.partial(_gn_apply_kernel, silu=silu),
-        out_shape=jax.ShapeDtypeStruct((n, hw, c), x.dtype),
-        grid=(n, nk),
-        in_specs=[
-            pl.BlockSpec((1, ch, c), lambda i, k: (i, k, 0)),
-            pl.BlockSpec((1, 2, c), lambda i, k: (i, 0, 0)),
-            pl.BlockSpec((1, c), lambda i, k: (0, 0)),
-            pl.BlockSpec((1, c), lambda i, k: (0, 0)),
-        ],
-        out_specs=pl.BlockSpec((1, ch, c), lambda i, k: (i, k, 0)),
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("parallel", "arbitrary"),
-            vmem_limit_bytes=100 * 1024 * 1024,
-        ),
-        interpret=interpret,
-    )(xr, stats, gamma.reshape(1, c), beta.reshape(1, c))
-    return out.reshape(n, h, w, c)
-
-
-@functools.lru_cache(maxsize=32)
-def _c2g_np(c: int, num_groups: int):
-    c2g = np.zeros((c, num_groups), dtype=np.float32)
-    gs = c // num_groups
-    for g in range(num_groups):
-        c2g[g * gs : (g + 1) * gs, g] = 1.0
-    return c2g
-
-
-def _gn_xla_mm(x, gamma, beta, num_groups, eps, silu):
-    """XLA GroupNorm without the lane-splitting C->(G,C/G) reshape.
-
-    Group statistics go through per-channel reductions (one fused read
-    pass computes sum and sum-of-squares) and a tiny one-hot [C,G] matmul,
-    so XLA never relayouts the lane dimension; the normalize/affine/SiLU
-    pass is a single fused elementwise read+write with [N,1,1,C]
-    broadcasts. 2R+1W traffic, no per-site kernel-launch overhead —
-    measured faster in-context than both the reshape-based _gn_xla and
-    the one-pass Pallas kernel at the bench batch (docs/PERF.md round 3)."""
-    n, h, w, c = x.shape
-    xr = x.reshape(n, h * w, c)
-    c2g = jnp.asarray(_c2g_np(c, num_groups))
-    n_per_group = float(h * w * (c // num_groups))
-    s1 = jnp.sum(xr, axis=1, dtype=jnp.float32)  # [N, C]
-    s2 = jnp.sum(jnp.square(xr.astype(jnp.float32)), axis=1)
-    mean_g = jnp.dot(s1, c2g, preferred_element_type=jnp.float32) / n_per_group
-    ex2_g = jnp.dot(s2, c2g, preferred_element_type=jnp.float32) / n_per_group
-    var_g = jnp.maximum(ex2_g - mean_g * mean_g, 0.0)
-    rstd_g = jax.lax.rsqrt(var_g + eps)
-    mean_c = jnp.dot(mean_g, c2g.T)[:, None, None, :]  # [N,1,1,C]
-    rstd_c = jnp.dot(rstd_g, c2g.T)[:, None, None, :]
-    y = (x.astype(jnp.float32) - mean_c) * rstd_c
-    y = y * gamma.astype(jnp.float32) + beta.astype(jnp.float32)
-    if silu:
-        y = y * jax.nn.sigmoid(y)
-    return y.astype(x.dtype)
-
-
-def prefers_mm_stats(x) -> bool:
-    """True when :func:`group_norm`'s dispatch would take the matmul-stats
-    XLA path for ``x`` — the gate callers use before choosing the fused
-    virtual-concat form (:func:`group_norm_silu_cat`), which is bit-exact
-    against that path only."""
-    return _use_xla_mm(x, False)
-
-
-def group_norm_silu_cat(a, b, gamma, beta, num_groups=32, eps=1e-5,
-                        silu=True):
-    """GroupNorm(+SiLU) of ``concat([a, b], axis=-1)`` WITHOUT materializing
-    the concat: returns the two normalized halves ``(ya, yb)``.
-
-    Same matmul-stats math as :func:`_gn_xla_mm` (one-pass E[x²] in f32
-    accumulators), split per input: each channel's sum involves only its
-    own half, so the per-channel statistics — and therefore the output —
-    are bit-identical to running _gn_xla_mm on the materialized concat.
-    Groups MAY span the a/b boundary (the group matmul sees the full
-    channel extent); only ``(Ca+Cb) % num_groups == 0`` is required.
-
-    This is the UNet up-path fusion: conv3x3(silu(gn(cat(h, skip)))) =
-    conv_a(ya) + conv_b(yb) with the kernel split along input channels,
-    so the [N,H,W,Ca+Cb] concat tensor never hits HBM.
-    """
-    n, h, w, ca = a.shape
-    cb = b.shape[-1]
-    c = ca + cb
-    if c % num_groups:
+    if c % num_groups != 0:
         raise ValueError(f"channels {c} not divisible by {num_groups} groups")
-    ar = a.reshape(n, h * w, ca)
-    br = b.reshape(n, h * w, cb)
-    s1 = jnp.concatenate(
-        [jnp.sum(ar, axis=1, dtype=jnp.float32),
-         jnp.sum(br, axis=1, dtype=jnp.float32)], axis=-1)  # [N, C]
-    s2 = jnp.concatenate(
-        [jnp.sum(jnp.square(ar.astype(jnp.float32)), axis=1),
-         jnp.sum(jnp.square(br.astype(jnp.float32)), axis=1)], axis=-1)
-    c2g = jnp.asarray(_c2g_np(c, num_groups))
-    n_per_group = float(h * w * (c // num_groups))
-    mean_g = jnp.dot(s1, c2g, preferred_element_type=jnp.float32) / n_per_group
-    ex2_g = jnp.dot(s2, c2g, preferred_element_type=jnp.float32) / n_per_group
-    var_g = jnp.maximum(ex2_g - mean_g * mean_g, 0.0)
-    rstd_g = jax.lax.rsqrt(var_g + eps)
-    mean_c = jnp.dot(mean_g, c2g.T)  # [N, C]
-    rstd_c = jnp.dot(rstd_g, c2g.T)
-
-    def _norm(x, lo, hi):
-        y = (x.astype(jnp.float32) - mean_c[:, None, None, lo:hi]) * rstd_c[
-            :, None, None, lo:hi
-        ]
-        y = y * gamma[lo:hi].astype(jnp.float32) + beta[lo:hi].astype(
-            jnp.float32
-        )
-        if silu:
-            y = y * jax.nn.sigmoid(y)
-        return y.astype(x.dtype)
-
-    return _norm(a, 0, ca), _norm(b, ca, c)
-
-
-def _gn_xla_mm2(x, gamma, beta, num_groups, eps, silu):
-    """Two-pass (centered-variance) variant of _gn_xla_mm for f32 inputs:
-    no E[x^2] cancellation, same no-lane-reshape structure. 3R+1W fused
-    XLA traffic — an A/B candidate against the chunked Pallas kernels on
-    the f32 VAE-decode sites."""
-    n, h, w, c = x.shape
-    xr = x.reshape(n, h * w, c)
-    c2g = jnp.asarray(_c2g_np(c, num_groups))
-    n_per_group = float(h * w * (c // num_groups))
-    s1 = jnp.sum(xr, axis=1, dtype=jnp.float32)  # [N, C]
-    mean_g = jnp.dot(s1, c2g, preferred_element_type=jnp.float32) / n_per_group
-    mean_c = jnp.dot(mean_g, c2g.T)  # [N, C]
-    xc = xr.astype(jnp.float32) - mean_c[:, None, :]
-    s2 = jnp.sum(jnp.square(xc), axis=1)
-    var_g = jnp.dot(s2, c2g, preferred_element_type=jnp.float32) / n_per_group
-    rstd_g = jax.lax.rsqrt(var_g + eps)
-    rstd_c = jnp.dot(rstd_g, c2g.T)[:, None, None, :]
-    y = (x.astype(jnp.float32) - mean_c[:, None, None, :]) * rstd_c
-    y = y * gamma.astype(jnp.float32) + beta.astype(jnp.float32)
-    if silu:
-        y = y * jax.nn.sigmoid(y)
-    return y.astype(x.dtype)
-
-
-def _gn_xla(x, gamma, beta, num_groups, eps, silu):
-    n, h, w, c = x.shape
     xf = x.astype(jnp.float32).reshape(n, h * w, num_groups, c // num_groups)
     mean = jnp.mean(xf, axis=(1, 3), keepdims=True)
     var = jnp.var(xf, axis=(1, 3), keepdims=True)
@@ -462,116 +35,15 @@ def _gn_xla(x, gamma, beta, num_groups, eps, silu):
     return y.astype(x.dtype)
 
 
-@functools.lru_cache(maxsize=64)
-def _gn_pallas_diff(num_groups, eps, silu, interpret):
-    """Differentiable wrapper: Pallas forward, XLA-recompute backward (the
-    kernel itself has no VJP; guidance paths grad through the VAE/UNet)."""
-
-    @jax.custom_vjp
-    def fn(x, gamma, beta):
-        n, h, w, c = x.shape
-        impl = _gn_pallas if h * w * c * 4 <= _VMEM_BUDGET else _gn_chunked
-        return impl(
-            x, gamma, beta, num_groups=num_groups, eps=eps, silu=silu,
-            interpret=interpret,
-        )
-
-    def fwd(x, gamma, beta):
-        return fn(x, gamma, beta), (x, gamma, beta)
-
-    def bwd(res, g):
-        x, gamma, beta = res
-        _, vjp = jax.vjp(
-            lambda xx, gg, bb: _gn_xla(xx, gg, bb, num_groups, eps, silu),
-            x, gamma, beta,
-        )
-        return vjp(g)
-
-    fn.defvjp(fwd, bwd)
-    return fn
-
-
-def _sharded_dispatch(x, gamma, beta, num_groups, eps, silu, ctx):
-    """Mesh-partitioned GroupNorm: statistics are per-sample, so the batch
-    dim is embarrassingly parallel — shard_map over the data axis keeps the
-    Pallas kernel local instead of letting GSPMD replicate it (see
-    ops/sharding.py). Channels stay whole on every device (group stats
-    need the full channel extent)."""
-    from jax.sharding import PartitionSpec as P
-
-    from complex_prompt_diffusion_tpu.ops.sharding import axis_if_divisible
-
-    data = axis_if_divisible(ctx, ctx.data_axis, x.shape[0])
-    local_up = ctx.local_use_pallas()
-    if data is None:
-        return _dispatch(
-            x, gamma, beta, num_groups, eps, silu, local_up, ctx.interpret
-        )
-    spec = P(data, None, None, None)
-    rep = P(None)
-    return jax.shard_map(
-        lambda xx, g, b: _dispatch(
-            xx, g, b, num_groups, eps, silu, local_up, ctx.interpret
-        ),
-        mesh=ctx.mesh,
-        in_specs=(spec, rep, rep),
-        out_specs=spec,
-        check_vma=False,
-    )(x, gamma, beta)
-
-
-def _dispatch(x, gamma, beta, num_groups, eps, silu, use_pallas, interpret=False):
-    if x.shape[-1] % num_groups != 0:
-        raise ValueError(f"channels {x.shape[-1]} not divisible by {num_groups} groups")
-    from complex_prompt_diffusion_tpu.ops.sharding import ShardCtx
-
-    if use_pallas == "interpret":  # ShardCtx.local_use_pallas sentinel
-        use_pallas, interpret = True, True
-    if isinstance(use_pallas, ShardCtx):
-        if _use_xla_mm(x, interpret):
-            # pure-XLA impl: GSPMD shards the batch-parallel stats natively,
-            # no shard_map wrapper needed
-            return _gn_xla_mm(x, gamma, beta, num_groups, eps, silu)
-        return _sharded_dispatch(x, gamma, beta, num_groups, eps, silu, use_pallas)
-    if use_pallas is None:
-        use_pallas = jax.default_backend() == "tpu"
-    n, h, w, c = x.shape
-    fits = h * w * c * 4 <= _VMEM_BUDGET
-    # over-budget activations stream through the chunked kernels (one-pass
-    # E[x²] stats for ≤16-bit storage; exact two-pass streaming for f32).
-    # n>=2 only: with a single sample the pipeline drains at every phase
-    # boundary and XLA wins (measured 106 vs 51 ms at b1, 42 vs 62 at b4
-    # per image — scripts/perf_vae3.py, docs/PERF.md round 3)
-    itemsize = jnp.dtype(x.dtype).itemsize
-    chunkable = n >= 2 and _chunk_hw(h * w, c, itemsize) > 0
-    # Round-5: the auto xla_mm route for <=16-bit inputs (the UNet-step win,
-    # all of whose planes fit VMEM) LOSES to the chunked streaming kernels
-    # on over-budget VAE-decode planes — 45.7 vs 34.4 ms/img at b4 bf16
-    # (scripts/perf_vae6.py). Keep xla_mm only where the plane fits.
-    prefer_chunked = (
-        use_pallas and not fits and chunkable
-        and _GN_IMPL == "auto" and not interpret
-    )
-    if _use_xla_mm(x, interpret) and not prefer_chunked:
-        return _gn_xla_mm(x, gamma, beta, num_groups, eps, silu)
-    if _GN_IMPL == "xla" and not interpret:
-        return _gn_xla(x, gamma, beta, num_groups, eps, silu)
-    if (use_pallas and (fits or chunkable)) or interpret:
-        return _gn_pallas_diff(num_groups, eps, silu, interpret)(x, gamma, beta)
-    return _gn_xla(x, gamma, beta, num_groups, eps, silu)
-
-
 def group_norm(
     x: jax.Array,
     gamma: jax.Array,
     beta: jax.Array,
     num_groups: int = 32,
     eps: float = 1e-5,
-    use_pallas: Optional[bool] = None,
-    interpret: bool = False,
 ) -> jax.Array:
     """GroupNorm over NHWC (equivalent to torch GroupNorm32, models/util.py:103)."""
-    return _dispatch(x, gamma, beta, num_groups, eps, False, use_pallas, interpret)
+    return _gn(x, gamma, beta, num_groups, eps, False)
 
 
 def group_norm_silu(
@@ -580,8 +52,6 @@ def group_norm_silu(
     beta: jax.Array,
     num_groups: int = 32,
     eps: float = 1e-5,
-    use_pallas: Optional[bool] = None,
-    interpret: bool = False,
 ) -> jax.Array:
     """Fused GroupNorm + SiLU (the ResBlock in_layers / out_layers prefix)."""
-    return _dispatch(x, gamma, beta, num_groups, eps, True, use_pallas, interpret)
+    return _gn(x, gamma, beta, num_groups, eps, True)

@@ -1,209 +1,23 @@
-"""Fused GEGLU feed-forward kernel (transformer MLP).
+"""GEGLU feed-forward (the SpatialTransformer MLP).
 
-The SpatialTransformer FF (reference attention.py FeedForward/GEGLU) is
-``out = (split_half(x @ W1 + b1) -> v * gelu(g)) @ W2 + b2``. XLA runs it
-as two HBM-roundtripping matmuls with the [M, 8C] intermediate (and the
-gated [M, 4C]) materialized in HBM. This kernel streams J-chunks of the
-hidden dim: per (row-block, chunk) it computes the value and gate slices,
-gates in VMEM, and accumulates the second matmul — the hidden activations
-never leave VMEM.
-
-Backward is XLA-recompute (custom VJP), same policy as ops/attention.py /
-ops/groupnorm.py, so guidance gradients compose.
+``out = (split_half(x @ W1 + b1) -> v * gelu(g)) @ W2 + b2``, as in the
+reference's FeedForward/GEGLU (cpd/models/attention.py). Plain XLA: the two
+matmuls go to cuBLAS, and XLA fuses the bias, split and exact-gelu gate into
+their epilogues and prologues as it sees fit.
 """
 
 from __future__ import annotations
 
-import functools
-import os
-
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 __all__ = ["geglu_ff"]
 
-# Row-block cap (A/B gate, read once at import — trace-time semantics).
-# 512 is the measured optimum at the SD bench batch; 1024 measured
-# +0.6 ms/step WORSE in isolation (docs/PERF.md round-3 budget table).
-_BLOCK_M_CAP = int(os.environ.get("CPD_TPU_FF_BLOCK_M", "512"))
 
-
-def _round_up(x: int, m: int) -> int:
-    return (x + m - 1) // m * m
-
-
-def _erf(x):
-    """Abramowitz-Stegun 7.1.26 rational erf (|err| < 1.5e-7 — below bf16
-    resolution). Neither erf nor erfc has a Pallas TPU lowering in this
-    jax version, so the exact-gelu is spelled with exp only."""
-    s = jnp.sign(x)
-    ax = jnp.abs(x)
-    t = 1.0 / (1.0 + 0.3275911 * ax)
-    poly = t * (
-        0.254829592
-        + t * (-0.284496736 + t * (1.421413741 + t * (-1.453152027 + t * 1.061405429)))
-    )
-    return s * (1.0 - poly * jnp.exp(-ax * ax))
-
-
-def _ff_kernel(x_ref, w1v_ref, w1g_ref, b1_ref, w2_ref, o_ref, *, nj):
-    j = pl.program_id(1)
-    x = x_ref[...]  # [bm, C] bf16
-    hv = jax.lax.dot_general(
-        x, w1v_ref[...], (((1,), (0,)), ((), ())),
-        preferred_element_type=jnp.float32,
-    ) + b1_ref[0, :][None, :]
-    hg = jax.lax.dot_general(
-        x, w1g_ref[...], (((1,), (0,)), ((), ())),
-        preferred_element_type=jnp.float32,
-    ) + b1_ref[1, :][None, :]
-    # exact (erf) gelu — the reference's F.gelu default
-    gelu_g = 0.5 * hg * (1.0 + _erf(hg * 0.7071067811865476))
-    y = (hv * gelu_g).astype(x.dtype)
-    acc = jax.lax.dot_general(
-        y, w2_ref[...], (((1,), (0,)), ((), ())),
-        preferred_element_type=jnp.float32,
-    )
-
-    @pl.when(j == 0)
-    def _init():
-        o_ref[...] = jnp.zeros_like(o_ref)
-
-    o_ref[...] += acc
-
-
-@functools.partial(
-    jax.jit, static_argnames=("block_m", "block_j", "interpret")
-)
-def _ff_pallas(x2d, w1, b1, w2, b2, *, block_m, block_j, interpret):
-    """x2d: [M, C]; w1: [C, 8C'] (value cols then gate cols); w2: [4C', C].
-    Hidden width 4C' comes from w2, so non-standard mults work too."""
-    m, c = x2d.shape
-    h4 = w2.shape[0]
-    m_pad = _round_up(m, block_m)
-    if m_pad != m:
-        x2d = jnp.pad(x2d, ((0, m_pad - m), (0, 0)))
-    nj = h4 // block_j
-    # stack value/gate biases as rows of one [2, 4C'] operand
-    b1vg = jnp.stack([b1[:h4], b1[h4:]], axis=0)
-    grid = (m_pad // block_m, nj)
-    out = pl.pallas_call(
-        functools.partial(_ff_kernel, nj=nj),
-        out_shape=jax.ShapeDtypeStruct((m_pad, c), jnp.float32),
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((block_m, c), lambda i, j: (i, 0)),
-            pl.BlockSpec((c, block_j), lambda i, j: (0, j)),
-            pl.BlockSpec((c, block_j), lambda i, j, _nj=nj: (0, _nj + j)),
-            pl.BlockSpec((2, block_j), lambda i, j: (0, j)),
-            pl.BlockSpec((block_j, c), lambda i, j: (j, 0)),
-        ],
-        out_specs=pl.BlockSpec((block_m, c), lambda i, j: (i, 0)),
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("parallel", "arbitrary"),
-            vmem_limit_bytes=100 * 1024 * 1024,
-        ),
-        interpret=interpret,
-    )(x2d, w1, w1, b1vg, w2)
-    out = out[:m] if m_pad != m else out
-    return out + b2[None, :].astype(jnp.float32)
-
-
-def _ff_xla(x, w1, b1, w2, b2):
+def geglu_ff(x, w1, b1, w2, b2):
+    """GEGLU FF: x [..., C], w1 [C, 8C'], b1 [8C'], w2 [4C', C], b2 [C];
+    computed in ``x.dtype``."""
     y = jnp.dot(x, w1.astype(x.dtype)) + b1.astype(x.dtype)
     v, g = jnp.split(y, 2, axis=-1)
     y = v * jax.nn.gelu(g, approximate=False)
     return jnp.dot(y, w2.astype(x.dtype)) + b2.astype(x.dtype)
-
-
-@functools.lru_cache(maxsize=32)
-def _ff_diff(block_m, block_j, interpret):
-    def _fwd(x, w1, b1, w2, b2):
-        shape = x.shape
-        c = shape[-1]
-        out = _ff_pallas(
-            x.reshape(-1, c),
-            w1.astype(x.dtype), b1, w2.astype(x.dtype), b2,
-            block_m=block_m, block_j=block_j, interpret=interpret,
-        )
-        return out.astype(x.dtype).reshape(shape)
-
-    @jax.custom_vjp
-    def fn(x, w1, b1, w2, b2):
-        return _fwd(x, w1, b1, w2, b2)
-
-    def fwd(x, w1, b1, w2, b2):
-        return fn(x, w1, b1, w2, b2), (x, w1, b1, w2, b2)
-
-    def bwd(res, g):
-        _, vjp = jax.vjp(_ff_xla, *res)
-        return vjp(g)
-
-    fn.defvjp(fwd, bwd)
-    return fn
-
-
-def geglu_ff(x, w1, b1, w2, b2, *, use_pallas=None, interpret: bool = False):
-    """GEGLU FF: x [..., C], w1 [C, 8C'], b1 [8C'], w2 [4C', C], b2 [C].
-
-    TPU: fused Pallas kernel (hidden stays in VMEM); elsewhere: XLA.
-    """
-    c = x.shape[-1]
-    h4 = w2.shape[0]
-    from complex_prompt_diffusion_tpu.ops.sharding import ShardCtx, axis_if_divisible
-
-    if isinstance(use_pallas, ShardCtx):
-        ctx = use_pallas
-        data = axis_if_divisible(ctx, ctx.data_axis, x.shape[0])
-        if data is None:
-            # model-axis-only mesh: the GEGLU value/gate pairing does not
-            # align with contiguous column shards of the fused [C, 8C']
-            # kernel, so let GSPMD partition the XLA path megatron-style
-            # through the sharded weights
-            return _ff_xla(x, w1.astype(x.dtype), b1.astype(x.dtype),
-                           w2.astype(x.dtype), b2.astype(x.dtype))
-        from jax.sharding import PartitionSpec as P
-
-        spec = P(*((data,) + (None,) * (x.ndim - 1)))
-        rep2, rep1 = P(None, None), P(None)
-        return jax.shard_map(
-            lambda xx, a1, c1, a2, c2: geglu_ff(
-                xx, a1, c1, a2, c2,
-                use_pallas=ctx.local_use_pallas(), interpret=ctx.interpret,
-            ),
-            mesh=ctx.mesh,
-            in_specs=(spec, rep2, rep1, rep2, rep1),
-            out_specs=spec,
-            check_vma=False,
-        )(x, w1, b1, w2, b2)
-    if use_pallas == "interpret":  # ShardCtx.local_use_pallas sentinel
-        use_pallas, interpret = True, True
-    if use_pallas is None:
-        use_pallas = jax.default_backend() == "tpu"
-    # kernel wants lane-aligned chunk splits and a VMEM-sized weight slice
-    fits = h4 % 256 == 0 and c % 128 == 0
-    if not ((use_pallas and fits) or (interpret and fits)):
-        return _ff_xla(x, w1.astype(x.dtype), b1.astype(x.dtype),
-                       w2.astype(x.dtype), b2.astype(x.dtype))
-    # largest divisor of the hidden width that is lane-aligned and whose
-    # weight slice (w1 value+gate + w2 ~= 6*c*block_j bytes) fits the VMEM
-    # chunk budget. Divisor-based (not power-of-2 doubling) so SD's
-    # h4=1280/2560 hidden widths run with nj=1 (no output-accumulator
-    # revisits) at levels 0 and 1.
-    block_j = 256
-    for d in range(min(h4, 12_000_000 // (6 * c)) // 128 * 128, 127, -128):
-        if h4 % d == 0:
-            block_j = d
-            break
-    m = 1
-    for d in x.shape[:-1]:
-        m *= d
-    # taller row blocks cut the per-row-block weight refetch; cap is an A/B
-    # gate (read once at import — trace-time semantics)
-    if m >= 512:
-        block_m = min(_BLOCK_M_CAP, 1 << (m.bit_length() - 1))
-    else:
-        block_m = _round_up(m, 8)
-    return _ff_diff(block_m, block_j, interpret)(x, w1, b1, w2, b2)

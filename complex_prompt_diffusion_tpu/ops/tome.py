@@ -10,18 +10,18 @@ has no analog — its only spatial-cost lever is attention slicing
 FLOPs. This trades a controlled approximation for a large FLOP cut at the
 dominant level-0 sites (S=4096: attention cost scales ~(1-ratio)^2).
 
-TPU-first design (everything static-shape, jit/scan-safe, no scatters):
+Design (everything static-shape, jit/scan-safe, no scatters):
 
 * dst tokens = a fixed strided 2D grid (one per ``sx x sy`` window, offset
   0 — deterministic; the paper's random offset buys ~nothing at SD scale),
   src = the rest. ``n_dst``, ``n_src`` and ``r`` are trace-time constants.
-* matching = one [B, n_src, n_dst] cosine-similarity matmul (MXU) + top-r
+* matching = one [B, n_src, n_dst] cosine-similarity matmul + top-r
   selection done as ONE argsort of the per-src best-match score — src
   ranks < r merge, ranks >= r keep; both index maps fall out of the same
   argsort with no scatter (``rank`` trick below).
 * merge = mean-pool each merged src into its best dst via a one-hot
-  [B, n_src, n_dst] matmul (scatter-add is lowering-hostile on TPU; the
-  one-hot contraction rides the MXU).
+  [B, n_src, n_dst] matmul (no scatter-add; the one-hot contraction is a
+  plain matmul).
 * unmerge = two gathers (take_along_axis) + one STATIC permutation that
   interleaves dst/src back to raster order.
 
@@ -168,7 +168,7 @@ def tome_merge(plan: TomePlan, x):
     """
     x_dst = jnp.take(x, plan.dst_pos, axis=1)
     x_src = jnp.take(x, plan.src_pos, axis=1)
-    # mean-pool merged src into their dst: one-hot contraction on the MXU
+    # mean-pool merged src into their dst: one-hot contraction (a matmul)
     sums = jax.lax.dot_general(
         plan.assign.astype(jnp.float32),
         x_src.astype(jnp.float32),

@@ -1,9 +1,9 @@
 """Parallelism: device mesh, shardings, data-parallel rendering.
 
 The reference has no distributed layer at all (SURVEY.md §2: single-process,
-single-CUDA-device; its "scaling" is VRAM offload). The TPU design replaces
+single-CUDA-device; its "scaling" is VRAM offload). This design replaces
 that with SPMD over a ``jax.sharding.Mesh``:
-  * weights replicated (SD-scale fits HBM on every chip),
+  * weights replicated (SD-scale fits device memory on every card),
   * batch / animation frames sharded over the ``data`` axis,
   * optional ``model`` axis for tensor-parallel experiments,
 with all communication implicit in jit-inserted XLA collectives over ICI.

@@ -1,7 +1,7 @@
 """Tensor-parallel inference: Megatron-style UNet weight sharding.
 
 No reference counterpart — the reference is single-GPU by design (SURVEY §2
-"Parallelism & distributed communication"). This is the TPU-native scaling
+"Parallelism & distributed communication"). This is the multi-device scaling
 path: annotate weight shardings over the mesh's "model" axis and let XLA's
 SPMD partitioner insert the collectives (the scaling-book recipe — shardings
 in, psum/all-gather out; no hand-written comms).
@@ -15,15 +15,10 @@ Sharding rules (the classic attention/MLP pair pattern):
     are HBM-bound at inference batch sizes and the GroupNorm group stats
     stay local this way.
 
-Pallas note: GSPMD cannot partition the custom flash-attention/GroupNorm
-kernels (it would replicate them with inserted all-gathers), so
-``shard_bundle`` installs an :class:`ops.sharding.ShardCtx` as the bundle's
-``use_pallas`` value: the kernels then wrap themselves in ``jax.shard_map``
-— batch over the "data" axis, attention heads over the "model" axis — and
-each device runs its local kernel slab, composing with the row-parallel
-out-projection psums GSPMD inserts outside. Sites that cannot shard (heads
-not divisible by the model size, short-KV cross-attention) fall back
-per-site to the XLA path, which GSPMD partitions cleanly.
+Attention under the mesh: cuDNN's fused attention carries its own
+partitioning rule (batch and heads may be sharded, sequence and head dim
+may not), and every other op is plain XLA, so GSPMD partitions the whole
+UNet from the weight shardings alone.
 """
 
 from __future__ import annotations
@@ -55,10 +50,8 @@ def _spec_for(path, leaf=None, conv_split: bool = False, model_size: int = 1) ->
             return P(None, "model")
         if parent == "to_out" or (is_ff and parent == "out"):
             return P("model", None)
-        # opt-in conv input-channel split (probe mode, scripts/
-        # perf_tp_convsplit.py): HWIO kernels contract a Cin shard per
-        # device, GSPMD psums the partial outputs. Measured-negative as a
-        # default — see docs/PERF.md "conv channel-split TP probe"
+        # opt-in conv input-channel split: HWIO kernels contract a Cin
+        # shard per device, GSPMD psums the partial outputs
         if (
             conv_split
             and leaf is not None
@@ -76,8 +69,7 @@ def unet_tp_shardings(unet_params: Any, mesh: Mesh, *, conv_split: bool = False)
     """NamedSharding pytree for the UNet params (same structure).
 
     ``conv_split=True`` additionally input-channel-splits the conv kernels
-    over the model axis (one psum per conv) — a probe mode, not the
-    default; the measured comparison lives in docs/PERF.md."""
+    over the model axis (one psum per conv); not the default."""
     model_size = mesh.shape.get("model", 1)
     return jax.tree_util.tree_map_with_path(
         lambda path, leaf: NamedSharding(
@@ -88,36 +80,22 @@ def unet_tp_shardings(unet_params: Any, mesh: Mesh, *, conv_split: bool = False)
     )
 
 
-def shard_bundle(
-    bundle, mesh: Mesh, *, interpret: bool = False, conv_split: bool = False
-):
+def shard_bundle(bundle, mesh: Mesh, *, conv_split: bool = False):
     """Place a ModelBundle on the mesh: UNet weights tensor-parallel over
-    "model", VAE/CLIP replicated. Returns a new bundle whose jit cache is
-    fresh (the placement is part of the compiled program).
+    "model", VAE/CLIP replicated. Returns a new bundle that records the
+    mesh and whose jit cache is fresh (the placement is part of the
+    compiled program).
 
-    ``interpret=True`` forces Pallas interpret mode inside the shard_map
-    wrappers (CPU-mesh tests of the kernel+TP composition).
-    ``conv_split=True``: probe-mode conv input-channel split (see
-    unet_tp_shardings)."""
-    from complex_prompt_diffusion_tpu.ops.sharding import ShardCtx
-
-    model_size = mesh.shape.get("model", 1)
+    ``conv_split=True``: conv input-channel split (see unet_tp_shardings)."""
     unet_params = jax.device_put(
         bundle.unet_params,
         unet_tp_shardings(bundle.unet_params, mesh, conv_split=conv_split),
     )
-    unet_cfg = bundle.unet_cfg
-    if getattr(unet_cfg, "use_pallas", None) is not False:
-        ctx = ShardCtx(
-            mesh=mesh, data_axis="data", model_axis="model",
-            interpret=interpret,
-        )
-        unet_cfg = dataclasses.replace(unet_cfg, use_pallas=ctx)
     return dataclasses.replace(
         bundle,
-        unet_cfg=unet_cfg,
         unet_params=unet_params,
         vae_params=replicate(mesh, bundle.vae_params),
         clip_params=replicate(mesh, bundle.clip_params),
+        mesh=mesh,
         _jit_cache={},
     )

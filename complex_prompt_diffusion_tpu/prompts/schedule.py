@@ -24,8 +24,6 @@ from __future__ import annotations
 import functools
 from typing import List
 
-import lark
-
 __all__ = ["expand_schedule", "get_prompt_sequence"]
 
 _GRAMMAR = r"""
@@ -42,16 +40,29 @@ plain: /([^\\\[\]():|]|\\.)+/
 """
 
 
+def _lark():
+    """The ``lark`` package, imported on first use: only this grammar needs
+    it (install the ``schedule`` extra)."""
+    try:
+        import lark
+    except ImportError as e:
+        raise ImportError(
+            "scheduled prompts ('[a:b:0.5]', '[a|b]') need the 'lark' "
+            "package: pip install 'complex-prompt-diffusion-tpu[schedule]'"
+        ) from e
+    return lark
+
+
 @functools.lru_cache(maxsize=1)
-def _parser() -> lark.Lark:
-    return lark.Lark(_GRAMMAR)
+def _parser():
+    return _lark().Lark(_GRAMMAR)
 
 
 def _boundaries(tree, steps: int) -> List[int]:
     """All step indices at which the rendered text changes."""
     found = [steps]
 
-    class Collect(lark.Visitor):
+    class Collect(_lark().Visitor):
         def scheduled(self, t):
             when = float(t.children[-1])
             if when < 1:
@@ -67,7 +78,7 @@ def _boundaries(tree, steps: int) -> List[int]:
 
 
 def _render_at(tree, step: int) -> str:
-    class Render(lark.Transformer):
+    class Render(_lark().Transformer):
         def scheduled(self, args):
             before, after, _ws, when = args
             yield (before or ()) if step <= when else after
@@ -101,7 +112,7 @@ def expand_schedule(prompt: str, steps: int) -> List[List]:
     reference (transforms.py:749-753)."""
     try:
         tree = _parser().parse(prompt)
-    except lark.exceptions.LarkError:
+    except _lark().exceptions.LarkError:
         return [[steps, prompt]]
     return [[t, _render_at(tree, t)] for t in _boundaries(tree, steps)]
 

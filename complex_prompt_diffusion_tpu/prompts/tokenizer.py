@@ -23,17 +23,55 @@ import gzip
 import html
 import json
 import os
+import re
+import unicodedata
+from pathlib import Path
 from typing import List, Optional, Sequence
 
 import numpy as np
-import regex as re
 
 __all__ = ["ClipBPETokenizer", "HashTokenizer", "get_tokenizer"]
 
-_PAT = re.compile(
-    r"""<\|startoftext\|>|<\|endoftext\|>|'s|'t|'re|'ve|'m|'ll|'d|[\p{L}]+|[\p{N}]|[^\s\p{L}\p{N}]+""",
-    re.IGNORECASE,
+# vocab files looked for in <checkout>/assets when no path is given
+_ASSETS = Path(__file__).resolve().parents[2] / "assets"
+
+# Unicode White_Space, the set the ``regex`` package's \s matches (the
+# stdlib's \s adds U+001C-U+001F).
+_WS = (
+    "\t\n\x0b\x0c\r \x85\xa0\u1680\u2000-\u200a\u2028\u2029\u202f"
+    "\u205f\u3000"
 )
+
+
+def _category_class(prefix: str) -> str:
+    """Regex character-class body covering every code point whose Unicode
+    general category starts with ``prefix`` ("L" letters, "N" numbers)."""
+    parts, start = [], None
+    for cp in range(0x110001):
+        inside = cp <= 0x10FFFF and unicodedata.category(chr(cp)).startswith(
+            prefix
+        )
+        if inside and start is None:
+            start = cp
+        elif not inside and start is not None:
+            a, b = re.escape(chr(start)), re.escape(chr(cp - 1))
+            parts.append(a if start == cp - 1 else f"{a}-{b}")
+            start = None
+    return "".join(parts)
+
+
+@functools.lru_cache(maxsize=1)
+def _pattern() -> "re.Pattern":
+    """CLIP's pre-tokenisation pattern in the stdlib ``re``:
+    ``'s|'t|...|[\\p{L}]+|[\\p{N}]|[^\\s\\p{L}\\p{N}]+`` with the
+    property classes spelled out. Inputs are lowercased first, so case
+    folding is not needed; U+0345 (a combining mark that case-folds to a
+    letter) is left unmatched, as the ``regex`` package leaves it."""
+    letters, numbers = _category_class("L"), _category_class("N")
+    return re.compile(
+        r"<\|startoftext\|>|<\|endoftext\|>|'s|'t|'re|'ve|'m|'ll|'d"
+        f"|[{letters}]+|[{numbers}]|[^{_WS}\u0345{letters}{numbers}]+"
+    )
 
 
 @functools.lru_cache()
@@ -60,7 +98,7 @@ def _get_pairs(word):
 
 def _clean(text: str) -> str:
     text = html.unescape(html.unescape(text))
-    text = re.sub(r"\s+", " ", text)
+    text = re.sub(f"[{_WS}]+", " ", text)
     return text.strip()
 
 
@@ -165,7 +203,7 @@ class ClipBPETokenizer(_TokenizerBase):
 
     def encode_text(self, text: str) -> List[int]:
         ids: List[int] = []
-        for token in re.findall(_PAT, _clean(text).lower()):
+        for token in _pattern().findall(_clean(text).lower()):
             token = "".join(self.byte_encoder[b] for b in token.encode("utf-8"))
             ids.extend(self.encoder[t] for t in self._bpe(token).split(" "))
         return ids
@@ -194,7 +232,7 @@ class HashTokenizer(_TokenizerBase):
         return h
 
     def encode_text(self, text: str) -> List[int]:
-        toks = re.findall(_PAT, _clean(text).lower())
+        toks = _pattern().findall(_clean(text).lower())
         space = self.vocab_size - 3
         return [1 + self._fnv1a(t) % (space - 1) for t in toks]
 
@@ -210,8 +248,8 @@ def get_tokenizer(
     candidates = [vocab_path] if vocab_path else []
     candidates += [
         os.environ.get("CPD_TPU_CLIP_VOCAB", ""),
-        "/root/repo/assets/vocab.json",
-        "/root/repo/assets/bpe_simple_vocab_16e6.txt.gz",
+        str(_ASSETS / "vocab.json"),
+        str(_ASSETS / "bpe_simple_vocab_16e6.txt.gz"),
     ]
     for cand in candidates:
         if cand and os.path.exists(cand):

@@ -5,7 +5,7 @@ interpolated prompt embeddings rendered frame by frame, with optional
 latent feedback (previous frame re-encoded with coherance/diversity noise,
 render.py:66-79) and the sqrt-lerp renoise helpers (:162-178).
 
-TPU redesign: when frames are independent (no latent feedback) the whole
+Redesign: when frames are independent (no latent feedback) the whole
 path renders as ONE batched, optionally mesh-sharded sampling run — the
 embedding path becomes the batch axis (frame parallelism over the ``data``
 mesh axis; SURVEY §2 parallelism table). The feedback mode stays a

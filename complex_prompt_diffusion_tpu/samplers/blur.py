@@ -10,7 +10,7 @@ schedules (blur.py:97-148).
 
 JAX redesign: the eigenbasis is computed host-side once (numpy symmetric
 eigendecomposition of the 1D blur matrix); on-device the operator is two
-small matmuls per side (separable), MXU-friendly. All per-step tables are
+small matmuls per side (separable). All per-step tables are
 precomputed arrays; the reverse loop is a lax.scan.
 """
 

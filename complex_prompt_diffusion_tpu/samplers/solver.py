@@ -456,7 +456,7 @@ def sample_dpm_solver_adaptive(
     solver.py:982-1043): embedded lower/higher singlestep pair with the
     Jolicoeur-Martineau step controller (arXiv:2105.14080).
 
-    TPU-native shape: the reference's data-dependent Python ``while`` runs
+    Compiled shape: the reference's data-dependent Python ``while`` runs
     as one ``lax.while_loop`` — all schedule lookups use the on-device
     interpolated :class:`NoiseScheduleVP` (the time grid is dynamic here, so
     the host-side static-coefficient trick of the fixed-grid methods does

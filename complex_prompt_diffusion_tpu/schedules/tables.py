@@ -1,6 +1,6 @@
 """Precomputed diffusion coefficient tables.
 
-The TPU-native replacement for the reference's stateful scheduler objects
+The replacement for the reference's stateful scheduler objects
 (/root/reference/cpd/scheduler/discrete.py:370-482): all per-timestep
 coefficients are computed once in float64 numpy and frozen into two pytree
 dataclasses that jit'd sampling loops index with ``jnp.take``:

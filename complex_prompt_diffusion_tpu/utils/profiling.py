@@ -1,6 +1,6 @@
 """Profiling / observability.
 
-TPU replacement for the reference's print-based CudaMon
+Replacement for the reference's print-based CudaMon
 (/root/reference/cpd/util.py:457-465) and the attention layer's
 read-memory-in-forward pattern (attention.py:299-324, explicitly removed):
   * :class:`StepTimer` — wall-clock step timing with images/sec summaries
@@ -63,7 +63,7 @@ class StepTimer:
 
 
 @contextlib.contextmanager
-def trace(logdir: str = "/tmp/cpd_tpu_trace"):
+def trace(logdir: str):
     """jax.profiler trace context (view with TensorBoard)."""
     jax.profiler.start_trace(logdir)
     try:

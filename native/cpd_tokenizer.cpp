@@ -2,7 +2,7 @@
 //
 // The framework's host-side serving hot path: every prompt-algebra factor
 // (weighted sub-prompts, AND/NOT factors, scheduled prompt variants — one
-// tokenization per boundary step) goes through BPE before hitting the TPU.
+// tokenization per boundary step) goes through BPE before reaching the device.
 // The reference delegates to HuggingFace's Python tokenizer
 // (/root/reference/cpd/models/embedder.py:803); this is a from-scratch C++
 // implementation exposed through a C ABI and loaded via ctypes

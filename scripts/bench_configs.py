@@ -14,20 +14,22 @@ Usage: python scripts/bench_configs.py [--config 3|4|5] [--steps N]
 import argparse
 import json
 import sys
+from pathlib import Path
 import time
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 
-jax.config.update("jax_compilation_cache_dir", "/tmp/jax_cache_cpd")
+from complex_prompt_diffusion_tpu.device import (  # noqa: E402
+    enable_compile_cache,
+    require_accelerator,
+)
 
-
-def _mat(x):
-    """Force host materialization (block_until_ready is a no-op here)."""
-    return float(jnp.float32(x).mean())
+require_accelerator()
+enable_compile_cache()
 
 
 def _bundle():
@@ -61,10 +63,10 @@ def bench_config3(steps: int):
         )
         cfg = RenderConfig(steps=steps, sampler="DDIM", width=512, height=512)
         lat = sample_latents(b, spec, cfg, key=jax.random.PRNGKey(0))
-        _mat(lat)  # compile+warm
+        jax.block_until_ready(lat)  # compile+warm
         t0 = time.perf_counter()
         lat = sample_latents(b, spec, cfg, key=jax.random.PRNGKey(1))
-        _mat(lat)
+        jax.block_until_ready(lat)
         dt = time.perf_counter() - t0
         rows.append(
             {
@@ -112,12 +114,12 @@ def bench_config4(steps: int):
         denoising_strength=0.75,
     )
     _, lat = img2img(b, img, "a room", cfg=cfg, depth_mask=depth, decode=False)
-    _mat(lat)
+    jax.block_until_ready(lat)
     t0 = time.perf_counter()
     _, lat = img2img(
         b, img, "a bright room", cfg=cfg, depth_mask=depth, decode=False
     )
-    _mat(lat)
+    jax.block_until_ready(lat)
     dt = time.perf_counter() - t0
     return [
         {
@@ -138,7 +140,7 @@ def bench_config5(steps: int, frames: int = 64):
         steps=steps, sampler="DDIM", width=512, height=512, batch_size=4,
     )
     _, lat = txt2img(b, "a landscape, frame", cfg=cfg, decode=False)
-    _mat(lat)
+    jax.block_until_ready(lat)
     n_calls = frames // cfg.batch_size
     t0 = time.perf_counter()
     for i in range(n_calls):
@@ -146,7 +148,7 @@ def bench_config5(steps: int, frames: int = 64):
             b, "a landscape, frame", cfg=cfg,
             key=jax.random.PRNGKey(i), decode=False,
         )
-        _mat(lat)
+        jax.block_until_ready(lat)
     dt = time.perf_counter() - t0
     return [
         {

@@ -1,8 +1,23 @@
-"""Secondary benchmark: SD-1.5 512x512, DPM-Solver++(2M) Karras 20 steps."""
-import json, time
-import jax, jax.numpy as jnp
-jax.config.update("jax_compilation_cache_dir", "/tmp/jax_cache_cpd")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+"""Secondary benchmark: SD-1.5 512x512, DPM-Solver++(2M) Karras 20 steps,
+sampling scan only. Needs the GPU."""
+import json
+import time
+import sys
+from pathlib import Path
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from complex_prompt_diffusion_tpu.device import (  # noqa: E402
+    enable_compile_cache,
+    require_accelerator,
+)
+
+require_accelerator()
+enable_compile_cache()
+
 from complex_prompt_diffusion_tpu import models as M, samplers as SA, schedules as S
 from complex_prompt_diffusion_tpu.guidance import GuidanceSpec, make_denoiser, GuidanceConfig
 
@@ -26,16 +41,18 @@ B = 4
 def make_x(i):
     return jax.random.normal(jax.random.fold_in(key, i), (B, 64, 64, 4), jnp.float32) * float(sigmas[0])
 
-float(jnp.float32(run(params, make_x(0), jax.random.PRNGKey(1)).mean()))  # compile
+jax.block_until_ready(run(params, make_x(0), jax.random.PRNGKey(1)))  # compile
 ts = []
 for i in range(2):
-    x = make_x(i + 1)
+    x = jax.block_until_ready(make_x(i + 1))
     t0 = time.perf_counter()
-    float(jnp.float32(run(params, x, jax.random.PRNGKey(2 + i)).mean()))
+    jax.block_until_ready(run(params, x, jax.random.PRNGKey(2 + i)))
     ts.append(time.perf_counter() - t0)
 dt = min(ts)
 print(json.dumps({
-    "metric": "images/sec/chip SD1.5 512x512 DPM++2M Karras-20 CFG7.5",
+    "metric": "images/sec scan SD1.5 512x512 DPM++2M Karras-20 CFG7.5",
     "value": round(B / dt, 4), "unit": "images/sec",
     "per_step_ms": round(dt / 20 * 1000, 2), "batch": B,
+    "platform": jax.devices()[0].platform,
+    "device_kind": jax.devices()[0].device_kind,
 }))

@@ -9,22 +9,25 @@ Prints one JSON line per variant.
 """
 import json
 import sys
+from pathlib import Path
 import time
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 import jax
 import jax.numpy as jnp
 
-jax.config.update("jax_compilation_cache_dir", "/tmp/jax_cache_cpd")
+from complex_prompt_diffusion_tpu.device import (  # noqa: E402
+    enable_compile_cache,
+    require_accelerator,
+)
+
+require_accelerator()
+enable_compile_cache()
 
 from complex_prompt_diffusion_tpu.pipeline import (
     ModelBundle, RenderConfig, txt2img,
 )
-
-
-def _mat(x):
-    return float(jnp.float32(x).mean())
 
 
 def main():
@@ -61,13 +64,13 @@ def main():
         )
         try:
             _, lat = txt2img(bb, "a vast landscape", cfg=cfg, decode=False)
-            _mat(lat)
+            jax.block_until_ready(lat)
             t0 = time.perf_counter()
             _, lat = txt2img(
                 bb, "a vast landscape", cfg=cfg,
                 key=jax.random.PRNGKey(1), decode=False,
             )
-            _mat(lat)
+            jax.block_until_ready(lat)
             dt = time.perf_counter() - t0
             print(json.dumps({
                 "metric": f"{size}x{size} DDIM-{steps} {label}",

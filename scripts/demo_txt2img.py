@@ -21,14 +21,24 @@ full-scale SD-1.5 checkpoint (tests/test_fullscale.py::test_golden_drill).
 """
 import argparse
 import sys
+from pathlib import Path
 
 import numpy as np
 
-import jax
-jax.config.update("jax_compilation_cache_dir", "/tmp/jax_cache_cpd")
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
-from complex_prompt_diffusion_tpu.pipeline import ModelBundle, RenderConfig, txt2img
-from complex_prompt_diffusion_tpu.utils import save_image
+import jax  # noqa: E402
+
+from complex_prompt_diffusion_tpu.device import (  # noqa: E402
+    compute_dtype,
+    enable_compile_cache,
+)
+from complex_prompt_diffusion_tpu.pipeline import (  # noqa: E402
+    ModelBundle,
+    RenderConfig,
+    txt2img,
+)
+from complex_prompt_diffusion_tpu.utils import save_image  # noqa: E402
 
 
 def golden_render(bundle, args, x_T, noises=None):
@@ -125,6 +135,7 @@ def main(argv=None):
     )
     ap.add_argument("--tol", type=float, default=5e-3)
     args = ap.parse_args(argv)
+    enable_compile_cache()
 
     golden_mode = args.golden or args.save_golden
     if args.ckpt:
@@ -135,7 +146,7 @@ def main(argv=None):
             return 2
         print("no --ckpt: using RANDOM weights (output will be noise)")
         bundle = ModelBundle.random("sd15").cast(
-            args.dtype or "bfloat16", donate=True
+            args.dtype or compute_dtype(jax.default_backend()), donate=True
         )
 
     if args.save_golden:

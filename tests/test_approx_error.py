@@ -1,8 +1,6 @@
 """Approximate-mode error regression guards (VERDICT r3 item 3).
 
-The headline-config speed-error table lives in docs/PERF.md
-("Approximate-mode error", measured on the chip at SD-1.5 512² DDIM-50);
-these tests pin the MECHANISM at tiny scale: each approximation's latent
+These tests pin the MECHANISM at tiny scale: each approximation's latent
 deviation from the exact path must stay in its measured band — nonzero
 (the mode really approximates) and below an upper bound ~3x the measured
 tiny-scale value (a regression guard against the cached/reduced path
@@ -91,7 +89,7 @@ def test_approx_deviation_within_band(setup, tag, kw):
 
 
 def test_bf16_decode_pixel_delta(setup):
-    # the bf16-VAE default decision (docs/PERF.md): pixels move by well
+    # the bf16-VAE decode: pixels move by well
     # under one u8 level on average, a few levels at most
     bundle, _, _, _, exact = setup
     img = decode_latents(bundle, jnp.asarray(exact)).astype(np.int32)

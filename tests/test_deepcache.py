@@ -332,7 +332,7 @@ class TestDeepCacheBatchChunk:
             deepcache_interval=2,
         )
         ref = sample_latents(
-            bundle, spec, RenderConfig(unet_batch_chunk=-1, **kw),
+            bundle, spec, RenderConfig(unet_batch_chunk=0, **kw),
             x_init=jnp.array(x_T), noises=noises,
         )
         out = sample_latents(

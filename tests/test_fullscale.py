@@ -205,8 +205,9 @@ class TestGoldenDrill:
         goldens, re-check them (PASS), then prove the check actually bites
         by perturbing the stored latents (FAIL)."""
         import sys
+        from pathlib import Path
 
-        sys.path.insert(0, "/root/repo/scripts")
+        sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "scripts"))
         try:
             import demo_txt2img as demo
         finally:

@@ -1,387 +1,316 @@
-"""Kernel-level tests: flash attention, fused groupnorm, blur.
+"""Op-level tests: attention routes and the device policy, GroupNorm(+SiLU),
+GEGLU feed-forward, convolutions, blur.
 
-Pallas kernels run in interpreter mode on CPU; each is checked against an
-independent pure-numpy/XLA reference implementation.
+Each op is checked against an independent numpy reference. The cuDNN
+attention route runs only on the GPU; its plumbing (layout, reshapes,
+route choice) is tested here through stand-ins, its numerics on the card
+in ``test_gpu.py``.
 """
+
+import importlib
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
+from complex_prompt_diffusion_tpu import device as D
 from complex_prompt_diffusion_tpu import ops
 
+A = importlib.import_module("complex_prompt_diffusion_tpu.ops.attention")
 
-def _ref_attention(q, k, v, scale):
-    s = np.einsum("bhqd,bhkd->bhqk", np.asarray(q, np.float64), np.asarray(k, np.float64))
-    s = s * scale
+
+def _ref_attention(q, k, v, heads, scale=None):
+    """Merged-layout [B, S, H*D] attention in float64 numpy."""
+    q, k, v = (np.asarray(jnp.asarray(a, jnp.float32), np.float64) for a in (q, k, v))
+    b, sq, inner = q.shape
+    d = inner // heads
+    scale = d**-0.5 if scale is None else scale
+
+    def split(x):
+        return x.reshape(b, x.shape[1], heads, d).transpose(0, 2, 1, 3)
+
+    s = np.einsum("bhqd,bhkd->bhqk", split(q), split(k)) * scale
     s = s - s.max(axis=-1, keepdims=True)
     p = np.exp(s)
     p = p / p.sum(axis=-1, keepdims=True)
-    return np.einsum("bhqk,bhkd->bhqd", p, np.asarray(v, np.float64))
+    o = np.einsum("bhqk,bhkd->bhqd", p, split(v))
+    return o.transpose(0, 2, 1, 3).reshape(b, sq, inner)
 
 
-class TestFlashAttention:
+def _qkv(b, s, heads, d, kv, dtype, seed=0):
+    ks = jax.random.split(jax.random.PRNGKey(seed), 3)
+    return (
+        jax.random.normal(ks[0], (b, s, heads * d), jnp.float32).astype(dtype),
+        jax.random.normal(ks[1], (b, kv, heads * d), jnp.float32).astype(dtype),
+        jax.random.normal(ks[2], (b, kv, heads * d), jnp.float32).astype(dtype),
+    )
+
+
+# tolerance as max |out - ref| / max |ref|: f32 is exact to accumulation
+# order; bf16 rounds inputs, probabilities and output to 8 significant bits
+_ATTN_TOL = {jnp.float32: 1e-5, jnp.bfloat16: 2e-2}
+
+
+class TestAttention:
+    # SD-1.5's head dims per UNet level (40, 80, 160), at CPU-sized S
+    @pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
+    @pytest.mark.parametrize("kind", ["self", "cross"])
+    @pytest.mark.parametrize("s,heads,d", [(64, 8, 40), (128, 8, 80), (32, 8, 160)])
+    def test_matches_numpy_over_sd_envelope(self, s, heads, d, kind, dtype):
+        kv = s if kind == "self" else 77
+        q, k, v = _qkv(2, s, heads, d, kv, dtype)
+        out = ops.attention(q, k, v, num_heads=heads)
+        assert out.shape == q.shape and out.dtype == q.dtype
+        ref = _ref_attention(q, k, v, heads)
+        err = np.max(np.abs(np.asarray(out, np.float64) - ref))
+        assert err <= _ATTN_TOL[dtype] * np.max(np.abs(ref))
+
+    @pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
+    def test_vae_wide_single_head(self, dtype):
+        # the VAE mid-block: one d=512 head, always the XLA route
+        q, k, v = _qkv(1, 64, 1, 512, 64, dtype, seed=3)
+        out = ops.attention(q, k, v, num_heads=1)
+        ref = _ref_attention(q, k, v, 1)
+        err = np.max(np.abs(np.asarray(out, np.float64) - ref))
+        assert err <= _ATTN_TOL[dtype] * np.max(np.abs(ref))
+
+    def test_explicit_scale(self):
+        q, k, v = _qkv(1, 16, 2, 8, 16, jnp.float32, seed=4)
+        out = ops.attention(q, k, v, num_heads=2, scale=0.3)
+        np.testing.assert_allclose(
+            np.asarray(out), _ref_attention(q, k, v, 2, scale=0.3),
+            atol=1e-5, rtol=1e-5,
+        )
+
+    @pytest.mark.parametrize("kind", ["self", "cross"])
+    def test_gradient_matches_numpy_rule(self, kind):
+        """d/dq, d/dk, d/dv of <attention, g> against the closed-form
+        softmax-attention gradient in float64 numpy."""
+        heads, d, s = 2, 8, 16
+        kv = s if kind == "self" else 7
+        q, k, v = _qkv(1, s, heads, d, kv, jnp.float32, seed=5)
+        g = np.asarray(jax.random.normal(jax.random.PRNGKey(6), q.shape))
+        got = jax.grad(
+            lambda a, b, c: jnp.sum(ops.attention(a, b, c, heads) * g),
+            argnums=(0, 1, 2),
+        )(q, k, v)
+
+        qn, kn, vn = (np.asarray(a, np.float64) for a in (q, k, v))
+
+        def split(x):
+            return x.reshape(1, x.shape[1], heads, d).transpose(0, 2, 1, 3)
+
+        def merge(x):
+            return x.transpose(0, 2, 1, 3).reshape(1, x.shape[2], heads * d)
+
+        qh, kh, vh, gh = split(qn), split(kn), split(vn), split(g.astype(np.float64))
+        scale = d**-0.5
+        sc = np.einsum("bhqd,bhkd->bhqk", qh, kh) * scale
+        p = np.exp(sc - sc.max(-1, keepdims=True))
+        p /= p.sum(-1, keepdims=True)
+        dv = np.einsum("bhqk,bhqd->bhkd", p, gh)
+        dp = np.einsum("bhqd,bhkd->bhqk", gh, vh)
+        ds = p * (dp - (dp * p).sum(-1, keepdims=True)) * scale
+        dq = np.einsum("bhqk,bhkd->bhqd", ds, kh)
+        dk = np.einsum("bhqk,bhqd->bhkd", ds, qh)
+        for a, b in zip(got, (merge(dq), merge(dk), merge(dv))):
+            np.testing.assert_allclose(np.asarray(a), b, atol=1e-5, rtol=1e-4)
+
+    def test_cudnn_branch_layout(self, monkeypatch):
+        """The cuDNN branch hands jax.nn.dot_product_attention the merged
+        layout reshaped to [B, S, H, D] (no transpose) and merges back.
+        Checked on the CPU by standing in its XLA implementation."""
+        seen = []
+        real = jax.nn.dot_product_attention
+
+        def fake(q, k, v, scale=None, implementation=None):
+            seen.append((q.shape, k.shape, implementation, scale))
+            return real(q, k, v, scale=scale, implementation="xla")
+
+        monkeypatch.setattr(A, "attention_route", lambda *args: "cudnn")
+        monkeypatch.setattr(jax.nn, "dot_product_attention", fake)
+        q, k, v = _qkv(2, 32, 4, 16, 48, jnp.float32, seed=7)
+        out = A.attention(q, k, v, num_heads=4)
+        assert seen == [((2, 32, 4, 16), (2, 48, 4, 16), "cudnn", 0.25)]
+        np.testing.assert_allclose(
+            np.asarray(out), _ref_attention(q, k, v, 4), atol=1e-5, rtol=1e-5
+        )
+
+    def test_route_is_chosen_before_tracing(self, monkeypatch):
+        """Each call site asks the device policy once, with the platform,
+        dtype, head dim and KV length known at trace time."""
+        calls = []
+
+        def route(platform, dtype, head_dim, kv_len):
+            calls.append((platform, jnp.dtype(dtype), head_dim, kv_len))
+            return "xla"
+
+        monkeypatch.setattr(A, "attention_route", route)
+        q, k, v = _qkv(1, 64, 8, 40, 77, jnp.bfloat16)
+        jax.jit(lambda a, b, c: A.attention(a, b, c, 8))(q, k, v)
+        assert calls == [("cpu", jnp.dtype(jnp.bfloat16), 40, 77)]
+
+
+class TestDevicePolicy:
     @pytest.mark.parametrize(
-        "sq,skv,d",
+        "platform,dtype,head_dim,kv_len,want",
         [
-            (128, 128, 128),  # aligned
-            (256, 77, 64),    # cross-attn: unaligned kv + sub-lane head dim
-            (100, 100, 40),   # everything unaligned (SD1 level-0 head dim)
+            ("gpu", jnp.bfloat16, 40, 4096, "cudnn"),   # UNet level 0
+            ("gpu", jnp.bfloat16, 80, 1024, "cudnn"),   # level 1
+            ("gpu", jnp.bfloat16, 160, 256, "xla"),     # level 2: measured
+            ("gpu", jnp.bfloat16, 80, 257, "cudnn"),
+            ("gpu", jnp.float16, 40, 4096, "cudnn"),
+            ("gpu", jnp.bfloat16, 256, 4096, "cudnn"),  # cuDNN's head-dim cap
+            ("gpu", jnp.bfloat16, 160, 64, "xla"),      # level 3: short KV
+            ("gpu", jnp.bfloat16, 40, 77, "xla"),       # cross-attention
+            ("gpu", jnp.bfloat16, 512, 4096, "xla"),    # VAE mid-block head
+            ("gpu", jnp.bfloat16, 264, 4096, "xla"),    # above the cap
+            ("gpu", jnp.bfloat16, 36, 4096, "xla"),     # not a multiple of 8
+            ("gpu", jnp.float32, 40, 4096, "xla"),      # f32: plain route
+            ("cpu", jnp.bfloat16, 40, 4096, "xla"),
         ],
     )
-    def test_pallas_matches_reference(self, sq, skv, d):
-        key = jax.random.PRNGKey(0)
-        kq, kk, kv_ = jax.random.split(key, 3)
-        q = jax.random.normal(kq, (2, 3, sq, d), jnp.float32)
-        k = jax.random.normal(kk, (2, 3, skv, d), jnp.float32)
-        v = jax.random.normal(kv_, (2, 3, skv, d), jnp.float32)
-
-        out = ops.flash_attention(q, k, v, interpret=True, block_q=128, block_k=128)
-        ref = _ref_attention(q, k, v, 1.0 / np.sqrt(d))
-        np.testing.assert_allclose(np.asarray(out), ref, atol=2e-5, rtol=2e-5)
-
-    def test_multiple_kv_blocks(self):
-        # force the online-softmax accumulation across 4 kv blocks
-        key = jax.random.PRNGKey(1)
-        kq, kk, kv_ = jax.random.split(key, 3)
-        q = jax.random.normal(kq, (1, 1, 128, 128), jnp.float32)
-        k = jax.random.normal(kk, (1, 1, 512, 128), jnp.float32)
-        v = jax.random.normal(kv_, (1, 1, 512, 128), jnp.float32)
-        out = ops.flash_attention(q, k, v, interpret=True, block_q=128, block_k=128)
-        ref = _ref_attention(q, k, v, 1.0 / np.sqrt(128))
-        np.testing.assert_allclose(np.asarray(out), ref, atol=2e-5, rtol=2e-5)
-
-    def test_xla_fallback_matches_reference(self):
-        key = jax.random.PRNGKey(2)
-        kq, kk, kv_ = jax.random.split(key, 3)
-        q = jax.random.normal(kq, (2, 4, 64, 40))
-        k = jax.random.normal(kk, (2, 4, 77, 40))
-        v = jax.random.normal(kv_, (2, 4, 77, 40))
-        out = ops.flash_attention(q, k, v, use_pallas=False)
-        ref = _ref_attention(q, k, v, 1.0 / np.sqrt(40))
-        np.testing.assert_allclose(np.asarray(out), ref, atol=1e-5, rtol=1e-5)
-
-    def test_bf16(self):
-        key = jax.random.PRNGKey(3)
-        kq, kk, kv_ = jax.random.split(key, 3)
-        q = jax.random.normal(kq, (1, 2, 128, 64), jnp.bfloat16)
-        k = jax.random.normal(kk, (1, 2, 128, 64), jnp.bfloat16)
-        v = jax.random.normal(kv_, (1, 2, 128, 64), jnp.bfloat16)
-        out = ops.flash_attention(q, k, v, interpret=True, block_q=128, block_k=128)
-        assert out.dtype == jnp.bfloat16
-        ref = _ref_attention(
-            np.asarray(q, np.float32), np.asarray(k, np.float32),
-            np.asarray(v, np.float32), 1.0 / np.sqrt(64),
-        )
-        np.testing.assert_allclose(
-            np.asarray(out, np.float32), ref, atol=2e-2, rtol=2e-2
-        )
+    def test_attention_route_table(self, platform, dtype, head_dim, kv_len, want):
+        assert D.attention_route(platform, dtype, head_dim, kv_len) == want
 
     @pytest.mark.parametrize(
-        "sq,skv,d",
-        [
-            (256, 256, 128),  # aligned
-            (256, 200, 64),   # kv unaligned -> in-kernel row mask
-            (100, 260, 40),   # sq unaligned + SD level-0 head dim
-            (384, 384, 80),   # SD level-1 head dim
-        ],
+        "platform,want", [("gpu", "bfloat16"), ("cpu", "float32")]
     )
-    def test_onepass_matches_reference(self, sq, skv, d):
-        # block_k=None + kv>128 routes to the one-pass transposed kernel
-        key = jax.random.PRNGKey(7)
-        kq, kk, kv_ = jax.random.split(key, 3)
-        q = jax.random.normal(kq, (2, 2, sq, d), jnp.float32)
-        k = jax.random.normal(kk, (2, 2, skv, d), jnp.float32)
-        v = jax.random.normal(kv_, (2, 2, skv, d), jnp.float32)
-        out = ops.flash_attention(q, k, v, interpret=True)
-        ref = _ref_attention(q, k, v, 1.0 / np.sqrt(d))
-        np.testing.assert_allclose(np.asarray(out), ref, atol=2e-5, rtol=2e-5)
+    def test_compute_dtype(self, platform, want):
+        assert D.compute_dtype(platform) == want
 
-    def test_onepass_block_q_tiling(self):
-        # sq spanning several query blocks
-        key = jax.random.PRNGKey(8)
-        kq, kk, kv_ = jax.random.split(key, 3)
-        q = jax.random.normal(kq, (1, 1, 512, 40), jnp.float32)
-        k = jax.random.normal(kk, (1, 1, 256, 40), jnp.float32)
-        v = jax.random.normal(kv_, (1, 1, 256, 40), jnp.float32)
-        out = ops.flash_attention(q, k, v, interpret=True, block_q=128)
-        ref = _ref_attention(q, k, v, 1.0 / np.sqrt(40))
-        np.testing.assert_allclose(np.asarray(out), ref, atol=2e-5, rtol=2e-5)
+    def test_require_accelerator_refuses_cpu(self):
+        with pytest.raises(RuntimeError, match="no accelerator"):
+            D.require_accelerator()
 
-    def test_onepass_gradient(self):
-        # custom VJP: XLA-recompute backward must match pure-XLA grads
-        key = jax.random.PRNGKey(9)
-        kq, kk, kv_ = jax.random.split(key, 3)
-        q = jax.random.normal(kq, (1, 2, 160, 40), jnp.float32)
-        k = jax.random.normal(kk, (1, 2, 160, 40), jnp.float32)
-        v = jax.random.normal(kv_, (1, 2, 160, 40), jnp.float32)
+    def test_compile_cache_follows_env(self, monkeypatch, tmp_path):
+        monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path))
+        assert D.enable_compile_cache() == str(tmp_path)
 
-        def loss_pallas(q):
-            return jnp.sum(ops.flash_attention(q, k, v, interpret=True) ** 2)
+    def test_compile_cache_defaults_to_checkout(self, monkeypatch):
+        from pathlib import Path
 
-        def loss_xla(q):
-            return jnp.sum(ops.flash_attention(q, k, v, use_pallas=False) ** 2)
-
-        g_p = jax.grad(loss_pallas)(q)
-        g_x = jax.grad(loss_xla)(q)
-        np.testing.assert_allclose(np.asarray(g_p), np.asarray(g_x), atol=1e-4, rtol=1e-4)
-
-    def test_merged_head_layout(self):
-        key = jax.random.PRNGKey(4)
-        kq, kk, kv_ = jax.random.split(key, 3)
-        q = jax.random.normal(kq, (2, 64, 8 * 40))
-        k = jax.random.normal(kk, (2, 77, 8 * 40))
-        v = jax.random.normal(kv_, (2, 77, 8 * 40))
-        out = ops.attention(q, k, v, num_heads=8, use_pallas=False)
-        assert out.shape == (2, 64, 320)
-        # equivalent to split-head reference
-        qh = q.reshape(2, 64, 8, 40).transpose(0, 2, 1, 3)
-        kh = k.reshape(2, 77, 8, 40).transpose(0, 2, 1, 3)
-        vh = v.reshape(2, 77, 8, 40).transpose(0, 2, 1, 3)
-        ref = _ref_attention(qh, kh, vh, 1 / np.sqrt(40))
-        ref = ref.transpose(0, 2, 1, 3).reshape(2, 64, 320)
-        np.testing.assert_allclose(np.asarray(out), ref, atol=1e-5, rtol=1e-5)
-
-    def test_wide_head_routes_to_streaming(self):
-        # VAE mid-block shape: single head, d=512 — above the one-pass
-        # kernel's d<=256 cap (whole-KV VMEM working set OOMs at bf16);
-        # must take the streaming flash kernel and stay exact
-        key = jax.random.PRNGKey(5)
-        kq, kk, kv_ = jax.random.split(key, 3)
-        q = jax.random.normal(kq, (1, 1, 256, 512))
-        k = jax.random.normal(kk, (1, 1, 256, 512))
-        v = jax.random.normal(kv_, (1, 1, 256, 512))
-        out = ops.flash_attention(q, k, v, interpret=True)
-        ref = _ref_attention(q, k, v, 1 / np.sqrt(512))
-        np.testing.assert_allclose(
-            np.asarray(out), np.asarray(ref), atol=1e-4, rtol=1e-4
-        )
+        monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+        path = D.enable_compile_cache()
+        assert Path(path) == Path(D.__file__).resolve().parents[1] / ".jax_cache"
+        assert jax.config.jax_compilation_cache_dir == path
 
 
-def _ref_group_norm(x, gamma, beta, groups, eps):
+def _ref_group_norm(x, gamma, beta, groups, eps, silu):
+    x = np.asarray(jnp.asarray(x, jnp.float32), np.float64)
     n, h, w, c = x.shape
-    xf = np.asarray(x, np.float64).reshape(n, h * w, groups, c // groups)
-    mean = xf.mean(axis=(1, 3), keepdims=True)
-    var = xf.var(axis=(1, 3), keepdims=True)
-    y = ((xf - mean) / np.sqrt(var + eps)).reshape(n, h, w, c)
-    return y * np.asarray(gamma, np.float64) + np.asarray(beta, np.float64)
-
-
-class TestInterpretSentinel:
-    """ShardCtx.local_use_pallas() returns "interpret" so the interpret flag
-    survives paths that only carry a use_pallas channel (the non-divisible
-    sharded-attention fallback, the tiled UNet's local config). Before the
-    fix these lowered REAL Mosaic kernels on CPU and failed to trace."""
-
-    def _qkv(self, b, heads, s, d, kv=None):
-        rs = np.random.RandomState(0)
-        kv = kv or s
-        q = jnp.asarray(rs.randn(b, s, heads * d), jnp.float32)
-        k = jnp.asarray(rs.randn(b, kv, heads * d), jnp.float32)
-        v = jnp.asarray(rs.randn(b, kv, heads * d), jnp.float32)
-        return q, k, v
-
-    def test_attention_interpret_sentinel(self):
-        q, k, v = self._qkv(2, 2, 256, 64)
-        out = ops.attention(q, k, v, num_heads=2, use_pallas="interpret")
-        ref = ops.attention(q, k, v, num_heads=2, use_pallas=False)
-        np.testing.assert_allclose(
-            np.asarray(out), np.asarray(ref), atol=2e-5
-        )
-
-    def test_sharded_attention_nondivisible_fallback(self):
-        # batch 3 not divisible by data=8, heads 3 not divisible by model=2,
-        # kv > 128: the fallback calls attention() with the ctx's local
-        # use_pallas — must run in interpret mode on CPU, not real Mosaic
-        from complex_prompt_diffusion_tpu.ops.sharding import ShardCtx
-        from complex_prompt_diffusion_tpu.parallel.mesh import make_mesh
-
-        ctx = ShardCtx(make_mesh(model=2), interpret=True)
-        q, k, v = self._qkv(3, 3, 256, 64)
-        out = ops.attention(q, k, v, num_heads=3, use_pallas=ctx)
-        ref = ops.attention(q, k, v, num_heads=3, use_pallas=False)
-        np.testing.assert_allclose(
-            np.asarray(out), np.asarray(ref), atol=2e-5
-        )
-
-    def test_groupnorm_interpret_sentinel(self):
-        rs = np.random.RandomState(1)
-        x = jnp.asarray(rs.randn(2, 8, 8, 64), jnp.float32)
-        g = jnp.asarray(rs.randn(64), jnp.float32)
-        b = jnp.asarray(rs.randn(64), jnp.float32)
-        out = ops.group_norm(x, g, b, num_groups=32, use_pallas="interpret")
-        ref = ops.group_norm(x, g, b, num_groups=32, use_pallas=False)
-        np.testing.assert_allclose(
-            np.asarray(out), np.asarray(ref), atol=2e-5
-        )
+    xr = x.reshape(n, h * w, groups, c // groups)
+    mean = xr.mean(axis=(1, 3), keepdims=True)
+    var = xr.var(axis=(1, 3), keepdims=True)
+    y = ((xr - mean) / np.sqrt(var + eps)).reshape(n, h, w, c)
+    y = y * np.asarray(gamma, np.float64) + np.asarray(beta, np.float64)
+    if silu:
+        y = y / (1.0 + np.exp(-y))
+    return y
 
 
 class TestGroupNorm:
-    def _data(self, n=2, h=8, w=8, c=128):
+    @pytest.mark.parametrize("silu", [False, True])
+    @pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
+    @pytest.mark.parametrize(
+        "shape,groups", [((2, 8, 8, 64), 32), ((1, 16, 4, 96), 32), ((2, 4, 4, 48), 16)]
+    )
+    def test_matches_numpy(self, shape, groups, dtype, silu):
         key = jax.random.PRNGKey(0)
-        k1, k2, k3 = jax.random.split(key, 3)
-        x = jax.random.normal(k1, (n, h, w, c)) * 3 + 1
-        gamma = jax.random.normal(k2, (c,)) * 0.5 + 1
-        beta = jax.random.normal(k3, (c,)) * 0.2
-        return x, gamma, beta
+        x = (jax.random.normal(key, shape) * 3.0 + 1.0).astype(dtype)
+        c = shape[-1]
+        gamma = jnp.linspace(0.5, 1.5, c)
+        beta = jnp.linspace(-0.2, 0.2, c)
+        fn = ops.group_norm_silu if silu else ops.group_norm
+        out = fn(x, gamma, beta, num_groups=groups, eps=1e-5)
+        assert out.shape == x.shape and out.dtype == x.dtype
+        ref = _ref_group_norm(x, gamma, beta, groups, 1e-5, silu)
+        tol = 1e-5 if dtype == jnp.float32 else 1e-2
+        err = np.max(np.abs(np.asarray(out, np.float64) - ref))
+        assert err <= tol * np.max(np.abs(ref))
 
-    def test_xla_matches_numpy(self):
-        x, gamma, beta = self._data()
-        out = ops.group_norm(x, gamma, beta, num_groups=32, use_pallas=False)
-        ref = _ref_group_norm(x, gamma, beta, 32, 1e-5)
-        np.testing.assert_allclose(np.asarray(out), ref, atol=1e-4, rtol=1e-4)
+    def test_gradient_matches_numerical(self):
+        """jax.grad of GroupNorm+SiLU against a float64 central difference
+        of the numpy reference."""
+        x = jax.random.normal(jax.random.PRNGKey(1), (1, 4, 4, 8))
+        gamma = jnp.linspace(0.5, 1.5, 8)
+        beta = jnp.zeros((8,))
+        g = jax.grad(
+            lambda a: jnp.sum(jnp.sin(ops.group_norm_silu(a, gamma, beta, 4)))
+        )(x)
 
-    def test_pallas_matches_xla(self):
-        x, gamma, beta = self._data()
-        ref = ops.group_norm(x, gamma, beta, num_groups=32, use_pallas=False)
-        out = ops.group_norm(x, gamma, beta, num_groups=32, interpret=True)
-        np.testing.assert_allclose(
-            np.asarray(out), np.asarray(ref), atol=1e-4, rtol=1e-4
-        )
+        def f(a):
+            return np.sum(np.sin(_ref_group_norm(a, gamma, beta, 4, 1e-5, True)))
 
-    def test_pallas_silu_matches_xla(self):
-        x, gamma, beta = self._data()
-        ref = ops.group_norm_silu(x, gamma, beta, num_groups=32, use_pallas=False)
-        out = ops.group_norm_silu(x, gamma, beta, num_groups=32, interpret=True)
-        np.testing.assert_allclose(
-            np.asarray(out), np.asarray(ref), atol=1e-4, rtol=1e-4
-        )
-
-    def test_bf16_one_pass_matches_xla(self):
-        # <=16-bit inputs take the one-pass E[x^2]-E[x]^2 stats path; the
-        # cancellation residual must stay below bf16 storage resolution
-        x, gamma, beta = self._data()
-        x = (x * 3 + 1).astype(jnp.bfloat16)  # shifted: stresses cancellation
-        gamma, beta = gamma.astype(jnp.bfloat16), beta.astype(jnp.bfloat16)
-        for fn in (ops.group_norm, ops.group_norm_silu):
-            ref = fn(x, gamma, beta, num_groups=32, use_pallas=False)
-            out = fn(x, gamma, beta, num_groups=32, interpret=True)
-            assert out.dtype == jnp.bfloat16
-            np.testing.assert_allclose(
-                np.asarray(out, np.float32),
-                np.asarray(ref, np.float32),
-                atol=2 ** -10,  # half a bf16 ULP at |y|~1
-                rtol=2 ** -7,
-            )
-
-    def test_cat_form_bitexact_vs_mm(self):
-        # group_norm_silu_cat on (a, b) must be BIT-identical to _gn_xla_mm
-        # on the materialized concat (same split-reduction math), including
-        # groups that span the a/b boundary (ca=96 with 32 groups of 7)
-        from complex_prompt_diffusion_tpu.ops import groupnorm as GN
-
-        x, gamma, beta = self._data(c=224)
-        for ca in (96, 128):
-            a, b = x[..., :ca], x[..., ca:]
-            ya, yb = GN.group_norm_silu_cat(a, b, gamma, beta, num_groups=32)
-            got = jnp.concatenate([ya, yb], axis=-1)
-            want = GN._gn_xla_mm(x, gamma, beta, 32, 1e-5, True)
-            np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
-
-    def test_cat_form_bad_channels_raises(self):
-        from complex_prompt_diffusion_tpu.ops import groupnorm as GN
-
-        x, gamma, beta = self._data(c=128)
-        with pytest.raises(ValueError):
-            GN.group_norm_silu_cat(
-                x[..., :65], x[..., 65:126], gamma[:126], beta[:126],
-                num_groups=32,
-            )
-
-    def test_chunked_f32_two_pass_matches_xla(self):
-        # over-VMEM-budget f32 activations stream through the two-pass
-        # chunked kernels (stats grid (n,2,nk)); must match XLA exactly
-        from complex_prompt_diffusion_tpu.ops import groupnorm as G
-
-        key = jax.random.PRNGKey(7)
-        x = jax.random.normal(key, (2, 64, 64, 512), jnp.float32) * 3 + 1
-        gamma = jax.random.normal(jax.random.PRNGKey(8), (512,), jnp.float32)
-        beta = jax.random.normal(jax.random.PRNGKey(9), (512,), jnp.float32)
-        assert G._chunk_hw(64 * 64, 512, 4) == 2048  # nk=2
-        for silu in (False, True):
-            ref = G._gn_xla(x, gamma, beta, 32, 1e-6, silu)
-            out = G._gn_chunked(
-                x, gamma, beta, num_groups=32, eps=1e-6, silu=silu,
-                interpret=True,
-            )
-            np.testing.assert_allclose(
-                np.asarray(out), np.asarray(ref), atol=1e-5, rtol=1e-5
-            )
-
-    @pytest.mark.slow
-    def test_chunked_bf16_one_pass_matches_xla(self):
-        # bf16 storage takes the one-pass E[x^2] chunked stats (2R+1W);
-        # nk=4 chunks at this shape — residual must stay in bf16 resolution
-        from complex_prompt_diffusion_tpu.ops import groupnorm as G
-
-        key = jax.random.PRNGKey(10)
-        x = (jax.random.normal(key, (2, 128, 128, 512), jnp.float32) * 3 + 1
-             ).astype(jnp.bfloat16)
-        gamma = jax.random.normal(
-            jax.random.PRNGKey(11), (512,), jnp.float32).astype(jnp.bfloat16)
-        beta = jax.random.normal(
-            jax.random.PRNGKey(12), (512,), jnp.float32).astype(jnp.bfloat16)
-        assert G._chunk_hw(128 * 128, 512, 2) == 4096  # nk=4
-        ref = G._gn_xla(x, gamma, beta, 32, 1e-6, True)
-        out = G._gn_chunked(
-            x, gamma, beta, num_groups=32, eps=1e-6, silu=True,
-            interpret=True,
-        )
-        np.testing.assert_allclose(
-            np.asarray(out, np.float32), np.asarray(ref, np.float32),
-            atol=2 ** -6, rtol=2 ** -7,
-        )
-
-    def test_xla_mm_matches_xla(self):
-        # matmul-stats XLA GroupNorm (the TPU default for <=16-bit inputs,
-        # docs/PERF.md round 3) must match the reshape-based reference
-        from complex_prompt_diffusion_tpu.ops import groupnorm as G
-
-        for dt, atol in ((jnp.float32, 1e-5), (jnp.bfloat16, 2 ** -6)):
-            x = (jax.random.normal(jax.random.PRNGKey(13), (2, 16, 16, 320),
-                                   jnp.float32) * 2 + 0.5).astype(dt)
-            gamma = jax.random.normal(jax.random.PRNGKey(14), (320,), jnp.float32)
-            beta = jax.random.normal(jax.random.PRNGKey(15), (320,), jnp.float32)
-            for silu in (False, True):
-                ref = G._gn_xla(x, gamma, beta, 32, 1e-6, silu)
-                for impl in (G._gn_xla_mm, G._gn_xla_mm2):
-                    out = impl(x, gamma, beta, 32, 1e-6, silu)
-                    np.testing.assert_allclose(
-                        np.asarray(out, np.float32), np.asarray(ref, np.float32),
-                        atol=atol, rtol=2 ** -7,
-                    )
-
-    def test_xla_mm_dispatch_and_grad(self):
-        from complex_prompt_diffusion_tpu.ops import groupnorm as G
-
-        xb = jax.random.normal(jax.random.PRNGKey(16), (1, 8, 8, 64), jnp.bfloat16)
-        xf = xb.astype(jnp.float32)
-        # auto: bf16 -> xla_mm, f32 -> legacy; interpret keeps Pallas
-        assert G._use_xla_mm(xb, interpret=False)
-        assert not G._use_xla_mm(xf, interpret=False)
-        assert not G._use_xla_mm(xb, interpret=True)
-        # natively differentiable: grads match the reshape-based XLA form
-        gamma = jnp.ones((64,), jnp.float32)
-        beta = jnp.zeros((64,), jnp.float32)
-        f_mm = lambda a: jnp.sum(G._gn_xla_mm(a, gamma, beta, 32, 1e-5, True))
-        f_ref = lambda a: jnp.sum(G._gn_xla(a, gamma, beta, 32, 1e-5, True))
-        np.testing.assert_allclose(
-            np.asarray(jax.grad(f_mm)(xf)), np.asarray(jax.grad(f_ref)(xf)),
-            atol=1e-4, rtol=1e-4,
-        )
-
-    def test_silu_applied(self):
-        x, gamma, beta = self._data(n=1)
-        a = ops.group_norm(x, gamma, beta, use_pallas=False)
-        b = ops.group_norm_silu(x, gamma, beta, use_pallas=False)
-        expected = np.asarray(a) / (1 + np.exp(-np.asarray(a, np.float64)))
-        np.testing.assert_allclose(np.asarray(b), expected, atol=1e-5)
+        xn = np.asarray(x, np.float64)
+        for idx in [(0, 1, 2, 3), (0, 0, 0, 0), (0, 3, 1, 6)]:
+            e = np.zeros_like(xn)
+            e[idx] = 1e-5
+            num = (f(xn + e) - f(xn - e)) / 2e-5
+            # f32 gradient: the group reductions cancel to ~1e-4 absolute
+            np.testing.assert_allclose(float(g[idx]), num, rtol=1e-3, atol=5e-4)
 
     def test_bad_groups_raises(self):
-        x, gamma, beta = self._data(c=100)
-        with pytest.raises(ValueError):
-            ops.group_norm(x, gamma, beta, num_groups=32)
+        x = jnp.zeros((1, 4, 4, 10))
+        with pytest.raises(ValueError, match="not divisible"):
+            ops.group_norm(x, jnp.ones(10), jnp.zeros(10), num_groups=32)
+
+
+class TestGegluFF:
+    @pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
+    def test_matches_numpy(self, dtype):
+        from scipy.special import erf
+
+        from complex_prompt_diffusion_tpu.ops.mlp import geglu_ff
+
+        c, h = 16, 64
+        ks = jax.random.split(jax.random.PRNGKey(0), 4)
+        x = jax.random.normal(ks[0], (2, 5, c)).astype(dtype)
+        w1 = jax.random.normal(ks[1], (c, 2 * h)) * 0.2
+        b1 = jax.random.normal(ks[2], (2 * h,)) * 0.1
+        w2 = jax.random.normal(ks[3], (h, c)) * 0.2
+        b2 = jnp.linspace(-0.1, 0.1, c)
+        out = geglu_ff(x, w1, b1, w2, b2)
+        assert out.shape == x.shape and out.dtype == x.dtype
+        xn = np.asarray(jnp.asarray(x, jnp.float32), np.float64)
+        y = xn @ np.asarray(w1, np.float64) + np.asarray(b1, np.float64)
+        val, gate = y[..., :h], y[..., h:]
+        y = val * 0.5 * gate * (1.0 + erf(gate / np.sqrt(2.0)))
+        ref = y @ np.asarray(w2, np.float64) + np.asarray(b2, np.float64)
+        tol = 1e-5 if dtype == jnp.float32 else 3e-2
+        err = np.max(np.abs(np.asarray(out, np.float64) - ref))
+        assert err <= tol * np.max(np.abs(ref))
+
+
+class TestConv2d:
+    @pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
+    @pytest.mark.parametrize("k,stride", [(1, 1), (3, 1), (3, 2), (1, 2)])
+    def test_matches_numpy(self, k, stride, dtype):
+        """torch-style symmetric padding (k-1)//2 at any stride."""
+        from complex_prompt_diffusion_tpu.models import layers as L
+
+        key = jax.random.PRNGKey(k * 10 + stride)
+        x = jax.random.normal(key, (2, 9, 7, 6)).astype(dtype)
+        p = L.init_conv(jax.random.fold_in(key, 1), 6, 5, k)
+        p = {"kernel": p["kernel"], "bias": p["bias"] + 0.1}
+        out = L.conv2d(p, x, stride=stride)
+        xn = np.asarray(jnp.asarray(x, jnp.float32), np.float64)
+        pad = (k - 1) // 2
+        xp = np.pad(xn, ((0, 0), (pad, pad), (pad, pad), (0, 0)))
+        ho = (9 + 2 * pad - k) // stride + 1
+        wo = (7 + 2 * pad - k) // stride + 1
+        w = np.asarray(p["kernel"], np.float64)
+        ref = np.zeros((2, ho, wo, 5))
+        for i in range(ho):
+            for j in range(wo):
+                patch = xp[:, i * stride : i * stride + k, j * stride : j * stride + k, :]
+                ref[:, i, j, :] = np.einsum("bhwc,hwco->bo", patch, w)
+        ref += np.asarray(p["bias"], np.float64)
+        assert out.shape == ref.shape and out.dtype == x.dtype
+        tol = 1e-5 if dtype == jnp.float32 else 2e-2
+        err = np.max(np.abs(np.asarray(out, np.float64) - ref))
+        assert err <= tol * np.max(np.abs(ref))
 
 
 class TestGaussianBlur:
@@ -399,441 +328,3 @@ class TestGaussianBlur:
         x = jax.random.normal(jax.random.PRNGKey(1), (1, 64, 64, 1))
         y = ops.gaussian_blur(x, kernel_size=15)
         assert float(jnp.var(y)) < 0.3 * float(jnp.var(x))
-
-
-class TestGegluFF:
-    """Fused GEGLU feed-forward (ops/mlp.py) vs the XLA reference path."""
-
-    def _mats(self, m, c, mult=4, seed=0):
-        rng = np.random.default_rng(seed)
-        x = jnp.asarray(rng.normal(size=(2, m, c)).astype(np.float32))
-        w1 = jnp.asarray(rng.normal(size=(c, 2 * mult * c)).astype(np.float32) * 0.05)
-        b1 = jnp.asarray(rng.normal(size=(2 * mult * c,)).astype(np.float32) * 0.1)
-        w2 = jnp.asarray(rng.normal(size=(mult * c, c)).astype(np.float32) * 0.05)
-        b2 = jnp.asarray(rng.normal(size=(c,)).astype(np.float32) * 0.1)
-        return x, w1, b1, w2, b2
-
-    def test_matches_xla(self):
-        from complex_prompt_diffusion_tpu.ops.mlp import _ff_xla, geglu_ff
-
-        x, w1, b1, w2, b2 = self._mats(96, 128)
-        ref = _ff_xla(x, w1, b1, w2, b2)
-        got = geglu_ff(x, w1, b1, w2, b2, use_pallas=True, interpret=True)
-        np.testing.assert_allclose(np.asarray(got), np.asarray(ref), atol=2e-5, rtol=2e-5)
-
-    def test_row_padding(self):
-        from complex_prompt_diffusion_tpu.ops.mlp import _ff_xla, geglu_ff
-
-        # M not a multiple of the row block
-        x, w1, b1, w2, b2 = self._mats(300, 128, seed=1)
-        ref = _ff_xla(x, w1, b1, w2, b2)
-        got = geglu_ff(x, w1, b1, w2, b2, use_pallas=True, interpret=True)
-        np.testing.assert_allclose(np.asarray(got), np.asarray(ref), atol=2e-5, rtol=2e-5)
-
-    def test_fallback_shapes(self):
-        from complex_prompt_diffusion_tpu.ops.mlp import _ff_xla, geglu_ff
-
-        # c=32 not lane-aligned -> XLA fallback, still exact
-        x, w1, b1, w2, b2 = self._mats(17, 32, seed=2)
-        ref = _ff_xla(x, w1, b1, w2, b2)
-        got = geglu_ff(x, w1, b1, w2, b2)
-        np.testing.assert_allclose(np.asarray(got), np.asarray(ref), atol=1e-5, rtol=1e-5)
-
-    def test_gradients(self):
-        from complex_prompt_diffusion_tpu.ops.mlp import _ff_xla, geglu_ff
-
-        x, w1, b1, w2, b2 = self._mats(64, 128, seed=3)
-
-        g1 = jax.grad(lambda a: jnp.sum(geglu_ff(a, w1, b1, w2, b2, use_pallas=True, interpret=True) ** 2))(x)
-        g2 = jax.grad(lambda a: jnp.sum(_ff_xla(a, w1, b1, w2, b2) ** 2))(x)
-        np.testing.assert_allclose(np.asarray(g1), np.asarray(g2), atol=2e-4, rtol=2e-4)
-
-
-class TestChannelMajorSelfAttention:
-    """Fused channel-major self-attention block (ops/attention.py
-    self_attention_cm) — opt-in path; exactness vs the split-head
-    reference."""
-
-    def test_matches_reference(self):
-        import importlib
-
-        A = importlib.import_module(
-            "complex_prompt_diffusion_tpu.ops.attention"
-        )
-        import sys
-
-        A = sys.modules["complex_prompt_diffusion_tpu.ops.attention"]
-        rng = np.random.default_rng(0)
-        b, s, c, h = 2, 256, 128, 2
-        d = c // h
-        x = jnp.asarray(rng.normal(size=(b, s, c)).astype(np.float32))
-        wq, wk, wv, wo = (
-            jnp.asarray(rng.normal(size=(c, c)).astype(np.float32) * c**-0.5)
-            for _ in range(4)
-        )
-        bo = jnp.asarray(rng.normal(size=(c,)).astype(np.float32) * 0.1)
-        got = A.self_attention_cm(x, wq, wk, wv, wo, bo, h, interpret=True)
-
-        def split(z):
-            return z.reshape(b, s, h, d).transpose(0, 2, 1, 3)
-
-        o = A._xla_attention(
-            split(x @ wq), split(x @ wk), split(x @ wv), d**-0.5
-        )
-        ref = o.transpose(0, 2, 1, 3).reshape(b, s, c) @ wo + bo
-        np.testing.assert_allclose(
-            np.asarray(got), np.asarray(ref), atol=2e-4, rtol=2e-3
-        )
-
-    def test_gradients_flow(self):
-        import sys
-
-        import complex_prompt_diffusion_tpu.ops.attention  # noqa: F401
-
-        A = sys.modules["complex_prompt_diffusion_tpu.ops.attention"]
-        rng = np.random.default_rng(1)
-        b, s, c, h = 1, 256, 128, 2
-        x = jnp.asarray(rng.normal(size=(b, s, c)).astype(np.float32))
-        ws = [
-            jnp.asarray(rng.normal(size=(c, c)).astype(np.float32) * c**-0.5)
-            for _ in range(4)
-        ]
-        bo = jnp.zeros((c,), jnp.float32)
-        g = jax.grad(
-            lambda a: jnp.sum(
-                A.self_attention_cm(a, *ws, bo, h, interpret=True) ** 2
-            )
-        )(x)
-        assert np.isfinite(np.asarray(g)).all()
-        assert float(jnp.abs(g).max()) > 0
-
-
-class TestConv3x3:
-    """ops/conv.py shifted-matmul conv vs XLA conv (interpret mode)."""
-
-    @pytest.mark.parametrize(
-        "b,h,w,ci,co",
-        [
-            (2, 16, 16, 32, 48),  # co chunking trivial, one h-block
-            (1, 8, 8, 16, 16),    # smallest level shape
-            (2, 32, 8, 24, 8),    # multi h-block, narrow W
-        ],
-    )
-    def test_matches_xla(self, b, h, w, ci, co):
-        from complex_prompt_diffusion_tpu.ops.conv import _xla_conv, conv3x3
-
-        rng = np.random.default_rng(0)
-        x = jnp.asarray(rng.standard_normal((b, h, w, ci)), jnp.float32)
-        k = jnp.asarray(rng.standard_normal((3, 3, ci, co)) * 0.05, jnp.float32)
-        bias = jnp.asarray(rng.standard_normal((co,)), jnp.float32)
-        out = conv3x3(x, k, bias, True)
-        ref = _xla_conv(x, k, bias)
-        np.testing.assert_allclose(np.asarray(out), np.asarray(ref), atol=1e-4)
-
-    def test_gradient_matches_xla(self):
-        # the custom VJP returns cotangents for x, kernel AND bias — check
-        # all three against the XLA conv reference
-        from complex_prompt_diffusion_tpu.ops.conv import _xla_conv, conv3x3
-
-        rng = np.random.default_rng(1)
-        x = jnp.asarray(rng.standard_normal((1, 8, 8, 16)), jnp.float32)
-        k = jnp.asarray(rng.standard_normal((3, 3, 16, 16)) * 0.05, jnp.float32)
-        bias = jnp.asarray(rng.standard_normal((16,)) * 0.1, jnp.float32)
-        g = jax.grad(
-            lambda a, kk, bb: jnp.sum(conv3x3(a, kk, bb, True) ** 2),
-            argnums=(0, 1, 2),
-        )(x, k, bias)
-        gr = jax.grad(
-            lambda a, kk, bb: jnp.sum(_xla_conv(a, kk, bb) ** 2),
-            argnums=(0, 1, 2),
-        )(x, k, bias)
-        for got, ref in zip(g, gr):
-            np.testing.assert_allclose(np.asarray(got), np.asarray(ref), atol=1e-4)
-
-    def test_no_fitting_chunk_falls_back(self):
-        # shapes where no co chunk fits the VMEM budget: _pick_blocks returns
-        # None, the guard rejects, and a direct conv3x3 call still computes
-        # the right thing via the XLA fallback
-        from complex_prompt_diffusion_tpu.ops import conv as C
-
-        # Co has no 128-multiple divisor, so the only candidate chunk is the
-        # full Co — and at C=4096 the 9*C*Co weight block alone (>14 MB)
-        # exceeds the 6 MB budget
-        assert C._pick_blocks(8, 8, 4096, 200) is None
-        assert not C.conv3x3_supported((1, 8, 8, 4096), (3, 3, 4096, 200), 1, None)
-        rng = np.random.default_rng(2)
-        x = jnp.asarray(rng.standard_normal((1, 8, 8, 4096)), jnp.float32)
-        k = jnp.asarray(
-            rng.standard_normal((3, 3, 4096, 200)) * 0.01, jnp.float32
-        )
-        bias = jnp.zeros((200,), jnp.float32)
-        out = C.conv3x3(x, k, bias, True)
-        np.testing.assert_allclose(
-            np.asarray(out), np.asarray(C._xla_conv(x, k, bias)), atol=1e-4
-        )
-
-    def test_itemsize_in_budget(self):
-        # f32 activations double the VMEM estimate: a shape that fits at
-        # bf16 must be rejected at itemsize=4 when it crosses the budget
-        from complex_prompt_diffusion_tpu.ops.conv import conv3x3_supported
-
-        shape, k = (1, 96, 96, 256), (3, 3, 256, 256)
-        assert conv3x3_supported(shape, k, 1, None, itemsize=2)
-        assert not conv3x3_supported(shape, k, 1, None, itemsize=4)
-
-    def test_scoped_vmem_oom_config_rejected(self):
-        # measured in-model OOM (TPU scoped VMEM, 16.13 MB vs the 16 MB
-        # limit): 32x32 planes with C=1280 — the whole-kernel budget rule
-        # (2*(xp+chunk) <= 12 MB) must reject them so the dispatch falls
-        # back to XLA instead of failing to compile
-        from complex_prompt_diffusion_tpu.ops import conv as C
-
-        assert not C.conv3x3_supported((2, 32, 32, 1280), (3, 3, 1280, 640), 1, None, 2)
-        assert not C.conv3x3_supported((2, 32, 32, 1280), (3, 3, 1280, 1280), 1, None, 2)
-        # ...while the measured-winning level shapes stay admitted
-        for h, c in [(64, 320), (32, 640), (16, 1280), (8, 1280)]:
-            assert C.conv3x3_supported((2, h, h, c), (3, 3, c, c), 1, None, 2)
-        # decoder skip-concat sites at 16x16 admitted with a small chunk
-        assert C._pick_blocks(16, 16, 1920, 1280, 2) == (16, 128)
-
-    def test_auto_dispatch_gate(self):
-        # default "auto": Pallas conv only at UNet batch <= 4 on 16^2/32^2
-        # planes (the measured-win regime, scripts/perf_conv3.py)
-        from complex_prompt_diffusion_tpu.models.layers import (
-            _pallas_conv_wanted,
-        )
-
-        assert _pallas_conv_wanted((2, 32, 32, 640))
-        assert _pallas_conv_wanted((4, 16, 16, 1280))
-        assert not _pallas_conv_wanted((8, 16, 16, 1280))  # throughput batch
-        assert not _pallas_conv_wanted((2, 64, 64, 320))  # marginal + VMEM risk
-        assert not _pallas_conv_wanted((2, 8, 8, 1280))  # measured loss
-
-    def test_decoder_concat_site_parity(self):
-        # non-square (skip-concat) channel count through the chunked-co
-        # path, interpret mode
-        from complex_prompt_diffusion_tpu.ops import conv as C
-
-        rng = np.random.default_rng(7)
-        x = jnp.asarray(rng.standard_normal((1, 16, 16, 1920)) * 0.1, jnp.float32)
-        k = jnp.asarray(rng.standard_normal((3, 3, 1920, 1280)) * 0.01, jnp.float32)
-        bias = jnp.asarray(rng.standard_normal((1280,)) * 0.1, jnp.float32)
-        out = C.conv3x3(x, k, bias, True)
-        np.testing.assert_allclose(
-            np.asarray(out), np.asarray(C._xla_conv(x, k, bias)), atol=2e-4
-        )
-
-    def test_supported_guard(self):
-        from complex_prompt_diffusion_tpu.ops.conv import conv3x3_supported
-
-        assert conv3x3_supported((8, 64, 64, 320), (3, 3, 320, 320), 1, None)
-        # stride-2 downsample, 1x1 conv, non-multiple-of-8 W: all fall back
-        assert not conv3x3_supported((8, 64, 64, 320), (3, 3, 320, 320), 2, None)
-        assert not conv3x3_supported((8, 64, 64, 320), (1, 1, 320, 320), 1, 0)
-        assert not conv3x3_supported((8, 64, 66, 320), (3, 3, 320, 320), 1, None)
-        # VAE-decode-scale activations exceed the VMEM budget: fall back
-        assert not conv3x3_supported((1, 512, 512, 128), (3, 3, 128, 128), 1, None)
-
-
-class TestWinograd3x3:
-    """ops/probes/winograd.py fused Winograd F(2x2,3x3) conv vs XLA conv
-    (interpret mode). Measured negative at every SD level shape on the
-    real chip (docs/PERF.md round 3, scripts/perf_wino2.py) — kept as
-    tested opt-in infrastructure, never auto-dispatched."""
-
-    @pytest.mark.parametrize(
-        "b,h,w,ci,co",
-        [
-            (1, 8, 8, 128, 128),    # single co chunk, smallest plane
-            (2, 16, 16, 256, 128),  # batch grid, ci != co
-            (1, 32, 32, 128, 256),  # multi-co-chunk revolve
-        ],
-    )
-    def test_matches_xla(self, b, h, w, ci, co):
-        from complex_prompt_diffusion_tpu.ops.probes import winograd as W
-
-        rng = np.random.default_rng(3)
-        x = jnp.asarray(rng.standard_normal((b, h, w, ci)), jnp.float32)
-        k = jnp.asarray(rng.standard_normal((3, 3, ci, co)) * 0.05, jnp.float32)
-        bias = jnp.asarray(rng.standard_normal((co,)), jnp.float32)
-        out = W.wino3x3(x, k, bias, True)
-        ref = W._xla_conv(x, k, bias)
-        np.testing.assert_allclose(np.asarray(out), np.asarray(ref), atol=1e-4)
-
-    def test_gradient_matches_xla(self):
-        from complex_prompt_diffusion_tpu.ops.probes import winograd as W
-
-        rng = np.random.default_rng(4)
-        x = jnp.asarray(rng.standard_normal((1, 8, 8, 128)), jnp.float32)
-        k = jnp.asarray(rng.standard_normal((3, 3, 128, 128)) * 0.05, jnp.float32)
-        bias = jnp.asarray(rng.standard_normal((128,)) * 0.1, jnp.float32)
-        g = jax.grad(
-            lambda a, kk, bb: jnp.sum(W.wino3x3(a, kk, bb, True) ** 2),
-            argnums=(0, 1, 2),
-        )(x, k, bias)
-        gr = jax.grad(
-            lambda a, kk, bb: jnp.sum(W._xla_conv(a, kk, bb) ** 2),
-            argnums=(0, 1, 2),
-        )(x, k, bias)
-        for got, ref in zip(g, gr):
-            np.testing.assert_allclose(np.asarray(got), np.asarray(ref), atol=1e-4)
-
-    def test_supported_guard_and_fallback(self):
-        from complex_prompt_diffusion_tpu.ops.probes import winograd as W
-
-        # 32^2 x 640 and 8^2 x 1280 fit the VMEM budget
-        assert W.wino3x3_supported((2, 32, 32, 640), (3, 3, 640, 640), 1, 1)
-        assert W.wino3x3_supported((2, 8, 8, 1280), (3, 3, 1280, 1280), 1, 1)
-        # 64^2 x 320 (no 128-multiple co divisor) and 16^2 x 1280 (double-
-        # buffered U chunk) exceed it; odd planes and strides rejected
-        assert not W.wino3x3_supported((2, 64, 64, 320), (3, 3, 320, 320), 1, 1)
-        assert not W.wino3x3_supported((2, 16, 16, 1280), (3, 3, 1280, 1280), 1, 1)
-        assert not W.wino3x3_supported((1, 9, 8, 128), (3, 3, 128, 128), 1, 1)
-        assert not W.wino3x3_supported((1, 8, 8, 128), (3, 3, 128, 128), 2, 1)
-        # direct call on an unsupported shape still computes via XLA fallback
-        rng = np.random.default_rng(5)
-        x = jnp.asarray(rng.standard_normal((1, 6, 6, 8)), jnp.float32)
-        k = jnp.asarray(rng.standard_normal((3, 3, 8, 8)) * 0.1, jnp.float32)
-        bias = jnp.zeros((8,), jnp.float32)
-        out = W.wino3x3(x, k, bias, True)
-        np.testing.assert_allclose(
-            np.asarray(out), np.asarray(W._xla_conv(x, k, bias)), atol=1e-4
-        )
-
-    def test_weight_transform(self):
-        # U = G g G^T reproduces the conv on a delta input: conv(delta) at
-        # the center equals the kernel sum row — cross-check the transform
-        # against a direct numpy Winograd evaluation of one 4x4 tile
-        from complex_prompt_diffusion_tpu.ops.probes import winograd as W
-
-        rng = np.random.default_rng(6)
-        g = jnp.asarray(rng.standard_normal((3, 3, 1, 1)), jnp.float32)
-        u = np.asarray(W.winograd_weights(g)).reshape(4, 4)
-        d = rng.standard_normal((4, 4)).astype(np.float32)
-        BT = np.array(
-            [[1, 0, -1, 0], [0, 1, 1, 0], [0, -1, 1, 0], [0, 1, 0, -1]],
-            np.float32,
-        )
-        AT = np.array([[1, 1, 1, 0], [0, 1, -1, -1]], np.float32)
-        v = BT @ d @ BT.T
-        y = AT @ (u * v) @ AT.T  # [2, 2] Winograd tile output
-        ref = np.zeros((2, 2), np.float32)
-        gk = np.asarray(g)[..., 0, 0]
-        for a in range(2):
-            for b in range(2):
-                ref[a, b] = float((d[a : a + 3, b : b + 3] * gk).sum())
-        np.testing.assert_allclose(y, ref, rtol=1e-5, atol=1e-5)
-
-
-class TestSubpixelUpConv:
-    """conv3x3_after_upsample2x == conv2d(upsample_nearest2x(x)) exactly
-    (up to f32 tap-sum reassociation)."""
-
-    def _ref(self, p, x):
-        from complex_prompt_diffusion_tpu.models import layers as L
-
-        return L.conv2d(p, L.upsample_nearest2x(x))
-
-    @pytest.mark.parametrize("b,h,w,ci,co", [(2, 8, 8, 16, 24), (1, 5, 7, 8, 8)])
-    def test_matches_upsample_conv(self, b, h, w, ci, co):
-        from complex_prompt_diffusion_tpu.models import layers as L
-
-        key = jax.random.PRNGKey(0)
-        x = jax.random.normal(key, (b, h, w, ci), jnp.float32)
-        p = L.init_conv(jax.random.fold_in(key, 1), ci, co, 3)
-        p = {"kernel": p["kernel"] + 0.01, "bias": p["bias"] + 0.1}
-        got = L.conv3x3_after_upsample2x(p, x)
-        want = self._ref(p, x)
-        assert got.shape == want.shape == (b, 2 * h, 2 * w, co)
-        np.testing.assert_allclose(
-            np.asarray(got), np.asarray(want), atol=1e-5, rtol=1e-5
-        )
-
-    def test_bf16(self):
-        from complex_prompt_diffusion_tpu.models import layers as L
-
-        key = jax.random.PRNGKey(2)
-        x = jax.random.normal(key, (2, 8, 8, 32), jnp.bfloat16)
-        p = L.init_conv(jax.random.fold_in(key, 1), 32, 32, 3)
-        got = L.conv3x3_after_upsample2x(p, x)
-        want = self._ref(p, x)
-        assert got.dtype == jnp.bfloat16
-        np.testing.assert_allclose(
-            np.asarray(got, np.float32), np.asarray(want, np.float32),
-            atol=2e-2, rtol=2e-2,
-        )
-
-    def test_gradients_match(self):
-        from complex_prompt_diffusion_tpu.models import layers as L
-
-        key = jax.random.PRNGKey(3)
-        x = jax.random.normal(key, (1, 6, 6, 8), jnp.float32)
-        p = L.init_conv(jax.random.fold_in(key, 1), 8, 12, 3)
-
-        def loss(fn, x, p):
-            return jnp.sum(jnp.sin(fn(p, x)))
-
-        g1 = jax.grad(lambda x, k, b: loss(
-            L.conv3x3_after_upsample2x, x, {"kernel": k, "bias": b}
-        ), argnums=(0, 1, 2))(x, p["kernel"], p["bias"])
-        g2 = jax.grad(lambda x, k, b: loss(
-            self._ref, x, {"kernel": k, "bias": b}
-        ), argnums=(0, 1, 2))(x, p["kernel"], p["bias"])
-        for a, b_ in zip(g1, g2):
-            np.testing.assert_allclose(
-                np.asarray(a), np.asarray(b_), atol=1e-5, rtol=1e-5
-            )
-
-
-class TestTapSumConv3x3:
-    """models/layers.py _tapsum_conv3x3 — nine shifted dot_generals over one
-    padded copy — vs the XLA conv it replaces on the 64^2 UNet plane."""
-
-    @pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
-    def test_matches_xla_conv(self, dtype):
-        from complex_prompt_diffusion_tpu.models import layers as L
-
-        rng = np.random.default_rng(7)
-        x = jnp.asarray(rng.standard_normal((2, 16, 16, 24)), dtype)
-        k = jnp.asarray(rng.standard_normal((3, 3, 24, 32)) * 0.05, jnp.float32)
-        bias = jnp.asarray(rng.standard_normal((32,)) * 0.1, jnp.float32)
-        out = L._tapsum_conv3x3(x, k, bias)
-        assert out.dtype == dtype
-        ref = jax.lax.conv_general_dilated(
-            x.astype(jnp.float32),
-            k,
-            (1, 1),
-            ((1, 1), (1, 1)),
-            dimension_numbers=("NHWC", "HWIO", "NHWC"),
-        ) + bias
-        tol = 1e-5 if dtype == jnp.float32 else 5e-2
-        np.testing.assert_allclose(
-            np.asarray(out, np.float32), np.asarray(ref), atol=tol, rtol=tol
-        )
-
-    def test_gradients_match_xla_conv(self):
-        # pure lax ops — autodiff must agree with the conv formulation for
-        # all three inputs (x, kernel, bias)
-        from complex_prompt_diffusion_tpu.models import layers as L
-
-        rng = np.random.default_rng(8)
-        x = jnp.asarray(rng.standard_normal((1, 8, 8, 12)), jnp.float32)
-        k = jnp.asarray(rng.standard_normal((3, 3, 12, 8)) * 0.1, jnp.float32)
-        bias = jnp.asarray(rng.standard_normal((8,)) * 0.1, jnp.float32)
-
-        def ref(a, kk, bb):
-            y = jax.lax.conv_general_dilated(
-                a, kk, (1, 1), ((1, 1), (1, 1)),
-                dimension_numbers=("NHWC", "HWIO", "NHWC"),
-            ) + bb
-            return jnp.sum(y ** 2)
-
-        g = jax.grad(
-            lambda a, kk, bb: jnp.sum(L._tapsum_conv3x3(a, kk, bb) ** 2),
-            argnums=(0, 1, 2),
-        )(x, k, bias)
-        gr = jax.grad(ref, argnums=(0, 1, 2))(x, k, bias)
-        for got, want in zip(g, gr):
-            np.testing.assert_allclose(
-                np.asarray(got), np.asarray(want), atol=1e-4, rtol=1e-4
-            )

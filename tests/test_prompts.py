@@ -237,3 +237,67 @@ class TestCompose:
 
 def _rng_range(a, b):
     return min(a.min(), b.min()), max(a.max(), b.max())
+
+
+# CLIP pre-tokenisation as the reference spells it, in the ``regex`` package
+_REGEX_PATTERN = (
+    r"""<\|startoftext\|>|<\|endoftext\|>|'s|'t|'re|'ve|'m|'ll|'d|"""
+    r"""[\p{L}]+|[\p{N}]|[^\s\p{L}\p{N}]+"""
+)
+
+
+class TestStdlibTokenizerPattern:
+    """The stdlib ``re`` pattern splits text exactly as the ``regex``
+    package's \\p{L}/\\p{N} pattern does (regex is a test-only reference)."""
+
+    @staticmethod
+    def _both(text):
+        regex = pytest.importorskip("regex")
+        from complex_prompt_diffusion_tpu.prompts import tokenizer as T
+
+        ref = regex.compile(_REGEX_PATTERN, regex.IGNORECASE)
+        clean = regex.sub(r"\s+", " ", text).strip().lower()
+        return (
+            T._pattern().findall(T._clean(text).lower()),
+            ref.findall(clean),
+        )
+
+    @pytest.mark.parametrize(
+        "text",
+        [
+            "a photograph of an astronaut riding a horse",
+            "A cat:2.0 a dog:1.0",
+            "it's the cat's hat, isn't it? we'll see -- they'd've",
+            "<|startoftext|>hello world<|endoftext|>",
+            "Ünïcödé — naïve café, Øresund, ß and ŉ",
+            "数字 123 and ²³ ½ Ⅻ ٣٤",
+            "emoji 🐱🐶!! (spaced)  tabs\tand\nnew lines",
+            "\x1c\x1dfile separators\x1e\x1f",
+            "ypogegrammeni ͅ and combining é",
+            "mixed ΑΒΓ αβγ Привет мир",
+            "[a:b:0.5] (x:1.2) [a|b]",
+            "",
+        ],
+    )
+    def test_corpus(self, text):
+        got, want = self._both(text)
+        assert got == want
+
+    def test_generated_text(self):
+        pytest.importorskip("regex")
+        from hypothesis import given, settings
+        from hypothesis import strategies as st
+
+        # code points assigned in this Python's Unicode tables
+        text = st.text(
+            alphabet=st.characters(exclude_categories=("Cn", "Cs")),
+            max_size=40,
+        )
+
+        @settings(max_examples=300, deadline=None, derandomize=True)
+        @given(text)
+        def check(s):
+            got, want = self._both(s)
+            assert got == want
+
+        check()

@@ -119,7 +119,6 @@ class TestTiledSharded:
         from complex_prompt_diffusion_tpu.pipeline import (
             ModelBundle, RenderConfig, txt2img,
         )
-        from complex_prompt_diffusion_tpu.ops.sharding import ShardCtx
 
         b = ModelBundle.random("tiny")
         cfg = RenderConfig(
@@ -130,7 +129,7 @@ class TestTiledSharded:
 
         mesh = self._mesh()
         sb = shard_bundle(b, mesh)
-        assert isinstance(sb.unet_cfg.use_pallas, ShardCtx)
+        assert sb.mesh is mesh
         with mesh:
             _, lat = txt2img(sb, "a cat", cfg=cfg, decode=False)
         np.testing.assert_allclose(

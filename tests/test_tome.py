@@ -3,7 +3,7 @@ downsampling, the locally-constant lossless property through real softmax
 attention, and the UNet wiring for both modes.
 
 The reference has no analog (its only spatial-cost lever is memory slicing,
-attention.py:280-348); token reduction is an opt-in TPU-side FLOP cut.
+attention.py:280-348); token reduction is an opt-in device-side FLOP cut.
 """
 
 import dataclasses
